@@ -1,0 +1,81 @@
+"""Batched RGBA pages and their word / gray views (port of
+`libpillowfight_tpu/core/bitmap.py`, the subset the cleanup chain uses).
+
+Pages are uint8 RGBA [B,H,W,4]; words are the same bytes viewed as
+**int32** [B,H,W] (R = low byte). torch's uint32 has no `>>` or `>` on
+the CPU, so words are signed: every `>>` is masked with 0xFF, or an
+alpha byte >= 128 would sign-extend into B.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def ensure_batched(img: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    """Return (batched_img, was_unbatched). Accepts [H,W], [H,W,4],
+    [B,H,W], [B,H,W,4]."""
+    if img.ndim == 2:
+        return img[None], True
+    if img.ndim == 3:
+        if img.shape[-1] == 4:
+            return img[None], True
+        return img, False
+    if img.ndim == 4:
+        return img, False
+    raise ValueError(f"unsupported image rank {img.ndim}: shape "
+                     f"{tuple(img.shape)}")
+
+
+def maybe_unbatch(img: torch.Tensor, was_unbatched: bool) -> torch.Tensor:
+    return img[0] if was_unbatched else img
+
+
+def pages_to_words(pages: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., 4] RGBA -> int32 [...] words (same bytes)."""
+    return pages.contiguous().view(torch.int32).squeeze(-1)
+
+
+def words_to_pages(words: torch.Tensor) -> torch.Tensor:
+    """int32 [...] words -> uint8 [..., 4] RGBA (same bytes)."""
+    return words.contiguous().unsqueeze(-1).view(torch.uint8)
+
+
+def rgba_to_gray(pages: torch.Tensor) -> torch.Tensor:
+    """uint8 [B,H,W,4] -> f32 [B,H,W] in [0,255], unweighted RGB mean."""
+    rgb = pages[..., :3].to(torch.int32)
+    return _third(rgb[..., 0] + rgb[..., 1] + rgb[..., 2])
+
+
+def _third(s3: torch.Tensor) -> torch.Tensor:
+    """f32 (r+g+b)/3 as the reference's compiled program computes it:
+    XLA rewrites the division by 3.0 into a product with f32(1/3), one
+    ulp off the exact quotient for some sums. torch's CUDA division by a
+    scalar does the same and its CPU division does not, so the product is
+    written out to be the same on both devices."""
+    return s3.to(torch.float32) * torch.tensor(1.0 / 3.0, dtype=torch.float32,
+                                               device=s3.device)
+
+
+def _channels(words: torch.Tensor):
+    r = words & 0xFF
+    g = (words >> 8) & 0xFF
+    b = (words >> 16) & 0xFF
+    return r, g, b
+
+
+def words_to_s3(words: torch.Tensor) -> torch.Tensor:
+    """int32 words -> int32 r+g+b in [0, 765], the exact form of
+    3*gray."""
+    r, g, b = _channels(words)
+    return r + g + b
+
+
+def words_to_gray(words: torch.Tensor) -> torch.Tensor:
+    """int32 words -> f32 gray, bit-identical to rgba_to_gray."""
+    return _third(words_to_s3(words))
+
+
+def wipe_white_words(words: torch.Tensor, wipe: torch.Tensor) -> torch.Tensor:
+    """Set the RGB bytes of wiped pixels to 255, keeping alpha."""
+    return torch.where(wipe, words | 0x00FFFFFF, words)

@@ -1,0 +1,147 @@
+"""Port core vs the JAX reference: constants, import hygiene, word
+views, block statistics, and the device dispatch of the kernel wrappers."""
+
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from libpillowfight_tpu.core import bitmap as jbm
+from libpillowfight_tpu.core import constants as JC
+from libpillowfight_tpu.ops.unpaper import common as jcommon
+from libpillowfight_tpu_torch.core import bitmap as tbm
+from libpillowfight_tpu_torch.core import constants as TC
+from libpillowfight_tpu_torch.ops.cuda import (flood_packed as tflood,
+                                               linecount as tlc, noise as tnoise)
+from libpillowfight_tpu_torch.ops.unpaper import common as tcommon
+
+
+def test_constants_match_reference():
+    names = [n for n in vars(TC) if n.isupper()]
+    assert len(names) >= 20
+    for n in names:
+        assert getattr(TC, n) == getattr(JC, n), n
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, libpillowfight_tpu_torch, "
+            "libpillowfight_tpu_torch.ops.morph, "
+            "libpillowfight_tpu_torch.ops.unpaper, "
+            "libpillowfight_tpu_torch._build; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'libpillowfight_tpu' not in sys.modules")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def _rgba(rng, b=2, h=37, w=53):
+    return rng.integers(0, 256, (b, h, w, 4), dtype=np.uint8)  # alpha >= 128 too
+
+
+def test_word_views_and_gray(rng):
+    pages = _rgba(rng)
+    words_np = jbm.host_pages_to_words(pages)
+    tp = torch.from_numpy(pages)
+    tw = tbm.pages_to_words(tp)
+    assert tw.dtype == torch.int32
+    np.testing.assert_array_equal(tw.numpy().view(np.uint32), words_np)
+    np.testing.assert_array_equal(tbm.words_to_pages(tw).numpy(), pages)
+    jw = jnp.asarray(words_np)
+    # jitted, as run_pipeline runs it (XLA computes x/3.0 as x*f32(1/3))
+    np.testing.assert_array_equal(tbm.words_to_gray(tw).numpy(),
+                                  np.asarray(jax.jit(jbm.words_to_gray)(jw)))
+    np.testing.assert_array_equal(tbm.rgba_to_gray(tp).numpy(),
+                                  np.asarray(jbm.rgba_to_gray(jnp.asarray(pages))))
+    np.testing.assert_array_equal(tbm.words_to_s3(tw).numpy(),
+                                  np.asarray(jbm.words_to_s3(jw)).astype(np.int32))
+    wipe = rng.random(words_np.shape) < 0.5
+    got = tbm.wipe_white_words(tw, torch.from_numpy(wipe)).numpy()
+    np.testing.assert_array_equal(
+        got.view(np.uint32),
+        np.asarray(jbm.wipe_white_words(jw, jnp.asarray(wipe))))
+
+
+def test_ensure_batched_forms():
+    for shape, unb in [((5, 6), True), ((5, 6, 4), True), ((2, 5, 6), False),
+                       ((2, 5, 6, 4), False)]:
+        x, u = tbm.ensure_batched(torch.zeros(shape))
+        assert u == unb and tbm.maybe_unbatch(x, u).shape == shape
+    with pytest.raises(ValueError):
+        tbm.ensure_batched(torch.zeros(3))
+
+
+def test_dark_and_nonwhite_masks(rng):
+    # every reachable gray value k/3, around both thresholds
+    s3 = np.arange(766, dtype=np.int32).reshape(1, 2, 383)
+    gray = torch.from_numpy(s3).to(torch.float32) / 3.0
+    jg = jnp.asarray(gray.numpy())
+    np.testing.assert_array_equal(tcommon.dark_mask(gray).numpy(),
+                                  np.asarray(jcommon.dark_mask(jg)))
+    np.testing.assert_array_equal(tcommon.dark_mask(gray, 0.5).numpy(),
+                                  np.asarray(jcommon.dark_mask(jg, 0.5)))
+    np.testing.assert_array_equal(tcommon.nonwhite_mask(gray).numpy(),
+                                  np.asarray(jcommon.nonwhite_mask(jg)))
+
+
+@pytest.mark.parametrize("size,step", [(20, 5), (100, 50), (50, 20), (7, 3),
+                                       (5, 5), (3, 4)])
+def test_block_stats_and_coverage(rng, size, step):
+    h, w = 263, 347  # multiples of no step
+    x = rng.random((2, h, w)) < 0.3
+    s3 = rng.integers(0, 766, (2, h, w)).astype(np.uint16)
+    tx = torch.from_numpy(x)
+    jx = jnp.asarray(x)
+    got = tcommon.block_counts(tx, size, step)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jcommon.block_counts(jx, size, step)))
+    if size * 765 < 65536:  # the reference's domain
+        np.testing.assert_array_equal(
+            tcommon.block_sums_u16(torch.from_numpy(s3.astype(np.int32)),
+                                   size, step).numpy(),
+            np.asarray(jcommon.block_sums_u16(jnp.asarray(s3), size, step)))
+    sel = got.numpy() > np.median(got.numpy())
+    np.testing.assert_array_equal(
+        tcommon.coverage_from_blocks(torch.from_numpy(sel), (2, h, w), size,
+                                     step).numpy(),
+        np.asarray(jcommon.coverage_from_blocks(jnp.asarray(sel), (2, h, w),
+                                                size, step)))
+
+
+def test_block_stats_domain_errors():
+    x = torch.zeros((1, 300, 300), dtype=torch.bool)
+    with pytest.raises(ValueError, match="size=257"):
+        tcommon.block_counts(x, 257, 1)
+    with pytest.raises(ValueError, match="size=200"):
+        tcommon.block_counts(torch.zeros((1, 3000, 300), dtype=torch.bool),
+                             200, 2)
+    with pytest.raises(ValueError, match="size=86"):
+        tcommon.block_sums_u16(x.to(torch.int32), 86, 10)
+
+
+def test_cuda_path_never_takes_cpu_tensors():
+    """A kernel wrapper refuses a tensor off the card, and the
+    dispatchers refuse any device other than cpu and cuda: nothing
+    that was meant for the card runs silently on the CPU."""
+    plane = torch.zeros((1, 40, 33), dtype=torch.bool)
+    words = torch.zeros((1, 2, 33), dtype=torch.int32)
+    for call in (lambda: tlc.line_counts_cuda(plane),
+                 lambda: tflood.pack_rows_cuda(plane),
+                 lambda: tflood.unpack_rows_cuda(words, 40),
+                 lambda: tflood.flood_round_cuda(
+                     words, words.clone(), 1, (words.clone(), words.clone())),
+                 lambda: tnoise.noise_cert_cuda(plane, 2, 5)):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            call()
+    meta = plane.to("meta")
+    for call in (lambda: tlc.line_counts(meta),
+                 lambda: tflood.pack_rows(meta),
+                 lambda: tnoise.noise_cert(meta, 2, 5),
+                 lambda: tflood.flood_packed(words.to("meta"),
+                                             words.to("meta"), 40, 33)):
+        with pytest.raises(ValueError, match="device meta"):
+            call()
+    with pytest.raises(ValueError, match="tensors on"):
+        tflood.flood_packed(words, words.to("meta"), 40, 33)

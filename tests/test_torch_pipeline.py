@@ -1,0 +1,76 @@
+"""The port's run_pipeline vs the JAX run_pipeline: bit-identical."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__
+from libpillowfight_tpu.core.bitmap import host_pages_to_words
+from libpillowfight_tpu.parallel import pipeline as jpipe
+import libpillowfight_tpu_torch as pt
+
+
+def _inputs(name, page):
+    if name == "tiny_batch":
+        return __graft_entry__._tiny_batch()
+    if name == "page_fixture":
+        return page
+    return __graft_entry__._tiny_batch(b=2, h=256, w=320)
+
+
+SPECS = {
+    "cleanup": jpipe.DOCUMENT_CLEANUP,
+    "black_threshold_fallback": (
+        ("unpaper_blackfilter", {"black_threshold": 0.5}),
+        "unpaper_noisefilter", "unpaper_masks", "unpaper_grayfilter"),
+    "kwargs_default_threshold": (
+        ("unpaper_blackfilter", {"black_threshold": 0.33, "intensity": 5}),
+        ("unpaper_noisefilter", {"intensity": 2}),
+        ("unpaper_border", (("scan_threshold", 3),))),
+}
+
+
+@pytest.mark.parametrize("inp", ["tiny_batch", "page_fixture", "256x320"])
+@pytest.mark.parametrize("spec", sorted(SPECS))
+@pytest.mark.parametrize("form", ["rgba", "words"])
+def test_run_pipeline_bit_identical(page, inp, spec, form):
+    pages = _inputs(inp, page)
+    jspec = jpipe.normalize_spec(SPECS[spec])
+    tspec = pt.normalize_spec(SPECS[spec])
+    assert tspec == jspec
+    if form == "rgba":
+        want = np.asarray(jpipe.run_pipeline(jnp.asarray(pages), jspec))
+        got = pt.run_pipeline(torch.from_numpy(pages), tspec)
+        assert got.dtype == torch.uint8
+        got = got.numpy()
+    else:
+        words = host_pages_to_words(pages)
+        if spec == "black_threshold_fallback":
+            # the reference's gray fallback reads RGBA pages only: hold the
+            # port's words path to the reference's RGBA result
+            want = host_pages_to_words(np.asarray(
+                jpipe.run_pipeline(jnp.asarray(pages), jspec)))
+        else:
+            want = np.asarray(jpipe.run_pipeline(jnp.asarray(words), jspec))
+        got = pt.run_pipeline(torch.from_numpy(words.view(np.int32)), tspec)
+        assert got.dtype == torch.int32
+        got = got.numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, want)
+    assert (want != (pages if form == "rgba"
+                     else host_pages_to_words(pages))).any()
+
+
+def test_compile_pipeline_and_errors(page):
+    fn = pt.compile_pipeline(["unpaper_border", ("unpaper_masks", {})])
+    want = np.asarray(jpipe.compile_pipeline(
+        ["unpaper_border", ("unpaper_masks", {})])(jnp.asarray(page)))
+    np.testing.assert_array_equal(fn(torch.from_numpy(page)).numpy(), want)
+    with pytest.raises(ValueError, match="unknown filter"):
+        pt.normalize_spec(["unpaper_nope"])
+    spec = pt.normalize_spec(["unpaper_border", "canny"])
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        pt.run_pipeline(torch.from_numpy(page), spec)
+    with pytest.raises(TypeError, match="uint8 RGBA or int32"):
+        pt.run_pipeline(torch.from_numpy(page).float(), pt.normalize_spec(
+            ["unpaper_border"]))
