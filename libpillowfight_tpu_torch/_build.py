@@ -31,6 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float
+FP = ctypes.POINTER(ctypes.c_float)  # a host array of floats
 # C signature of every entry: name -> argument types (return type int)
 _SIGNATURES = {
     "pft_line_counts": [P, P, P, I, I, I, P],
@@ -38,6 +40,9 @@ _SIGNATURES = {
     "pft_unpack_rows": [P, P, I, I, I, P],
     "pft_flood_round": [P, P, P, P, P, I, I, I, I, P],
     "pft_noise_cert": [P, P, P, I, I, I, I, I, P],
+    "pft_noise_ball": [P, P, I, I, I, I, P],
+    "pft_gaussian_sep": [P, P, FP, I, I, I, I, P],
+    "pft_ace_spray": [P, P, P, P, P, P, I, I, I, I, F, F, P],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
 """Batched RGBA pages and their word / gray views (port of
-`libpillowfight_tpu/core/bitmap.py`, the subset the cleanup chain uses).
+`libpillowfight_tpu/core/bitmap.py`, all but `compare`).
 
 Pages are uint8 RGBA [B,H,W,4]; words are the same bytes viewed as
 **int32** [B,H,W] (R = low byte). torch's uint32 has no `>>` or `>` on
@@ -79,3 +79,25 @@ def words_to_gray(words: torch.Tensor) -> torch.Tensor:
 def wipe_white_words(words: torch.Tensor, wipe: torch.Tensor) -> torch.Tensor:
     """Set the RGB bytes of wiped pixels to 255, keeping alpha."""
     return torch.where(wipe, words | 0x00FFFFFF, words)
+
+
+def gray_to_rgba(gray: torch.Tensor) -> torch.Tensor:
+    """f32 [B,H,W] in [0,255] -> uint8 RGBA [B,H,W,4], opaque alpha."""
+    v = to_uint8(gray)
+    return torch.stack([v, v, v, torch.full_like(v, 255)], dim=-1)
+
+
+def to_uint8(x: torch.Tensor) -> torch.Tensor:
+    """Round half to even, clip to [0,255], cast."""
+    return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+
+
+def normalize(matrix: torch.Tensor) -> torch.Tensor:
+    """Per-page min-max rescale of f32 [B,H,W] to [0,255]; flat pages
+    map to 0. `255 / span` is a true division: torch computes
+    `scalar / tensor` as a reciprocal times the scalar, which rounds
+    differently."""
+    lo = torch.amin(matrix, dim=(-2, -1), keepdim=True)
+    hi = torch.amax(matrix, dim=(-2, -1), keepdim=True)
+    span = torch.clamp(hi - lo, min=1e-12)
+    return (matrix - lo) * (torch.full_like(span, 255.0) / span)

@@ -1,1 +1,2 @@
-"""Filters of the port (the unpaper family so far) and their kernels."""
+"""Filters of the port (unpaper, gaussian, sobel, canny, ACE) and their
+kernels."""

@@ -1,8 +1,10 @@
-"""Noisefilter certificate sweep (kernel `csrc/noise_cert.cu`) and the
-certificate + flood formulation of the small-cluster mask.
+"""Noisefilter ball sweeps (kernels in `csrc/noise_cert.cu`): the
+certificate sweep with the certificate + flood formulation of the
+small-cluster mask, and the direct ball count.
 
 Replaces `libpillowfight_tpu/ops/pallas/noise_kernel.py`
-`_cert_band_kernel` (via `_cert_sweep`) and the orchestration of
+`_cert_band_kernel` (via `_cert_sweep`), `_noise_band_kernel` (via
+`_noise_sweep` and `_ball_sweep`) and the orchestration of
 `small_cluster_mask_pallas`.
 """
 
@@ -15,9 +17,11 @@ from ... import _build
 from . import expect, use_kernel
 from .flood_packed import flood_packed, lsr, pack_rows_plain, unpack_rows
 
-launches = 0
+# launch counts of the kernel wrappers
+launches = {"noise_cert": 0, "noise_ball": 0}
 
-MAX_J = 8  # board radius the kernel is instantiated for (k <= 15)
+MAX_J = 8   # certificate board radius the kernel is instantiated for (k <= 15)
+MAX_K = 15  # ball radius the direct-count kernel is instantiated for
 
 
 def _i32(v: int) -> int:
@@ -67,11 +71,12 @@ def _popcount(v: torch.Tensor) -> torch.Tensor:
     return v & 0x3F
 
 
-def noise_cert_plain(plane: torch.Tensor, j: int, thresh: int
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Packed (cert, mask) int32 [B,ceil(H/32),W]: cert marks mask pixels
-    whose radius-j graph ball in the (2j+1)^2 window has >= thresh
-    members; neighbours outside the page are 0."""
+def _ball_sizes(plane: torch.Tensor, j: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(centre bool [B,H,W], |ball| int32 [B,H,W]): the size of each
+    pixel's radius-j graph ball inside its (2j+1)^2 window, after j
+    dilation steps on the window's bitboard; neighbours outside the page
+    are 0. The plain version of both sweeps of `csrc/noise_cert.cu`."""
     b, h, w = plane.shape
     s = 2 * j + 1
     nw = (s * s + 31) // 32
@@ -89,7 +94,7 @@ def noise_cert_plain(plane: torch.Tensor, j: int, thresh: int
         wi, o = divmod(d * s, 32)
         m[wi] = m[wi] | (strip << o)
         if o + s > 32 and wi + 1 < nw:
-            m[wi + 1] = m[wi + 1] | (strip >> (32 - o))
+            m[wi + 1] = m[wi + 1] | lsr(strip, 32 - o)
     board = _board_words(j, None)
     val_p = _board_words(j, 0)
     val_m = _board_words(j, s - 1)
@@ -104,9 +109,16 @@ def noise_cert_plain(plane: torch.Tensor, j: int, thresh: int
         up = _shift_board(t, s)
         dn = _shift_board(t, -s)
         r = [(t[i] | up[i] | dn[i]) & board[i] & m[i] for i in range(nw)]
-    size = sum(_popcount(x) for x in r)
-    cert = center & (size >= thresh)
-    return pack_rows_plain(cert), pack_rows_plain(center)
+    return center, sum(_popcount(x) for x in r)
+
+
+def noise_cert_plain(plane: torch.Tensor, j: int, thresh: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed (cert, mask) int32 [B,ceil(H/32),W]: cert marks mask pixels
+    whose radius-j graph ball in the (2j+1)^2 window has >= thresh
+    members."""
+    center, size = _ball_sizes(plane, j)
+    return pack_rows_plain(center & (size >= thresh)), pack_rows_plain(center)
 
 
 def noise_cert_cuda(plane: torch.Tensor, j: int, thresh: int
@@ -121,8 +133,7 @@ def noise_cert_cuda(plane: torch.Tensor, j: int, thresh: int
     _build.check(_build.load().pft_noise_cert(
         plane.data_ptr(), cert.data_ptr(), maskw.data_ptr(), b, h, w, j,
         thresh, _build.stream_of(plane)), "pft_noise_cert")
-    global launches
-    launches += 1
+    launches["noise_cert"] += 1
     return cert, maskw
 
 
@@ -133,6 +144,34 @@ def noise_cert(plane: torch.Tensor, j: int, thresh: int
     return noise_cert_plain(plane, j, thresh)
 
 
+def noise_ball_plain(plane: torch.Tensor, k: int) -> torch.Tensor:
+    """bool [B,H,W]: mask pixels whose radius-k graph ball has <= k
+    members, i.e. whose 8-connected cluster has <= k pixels."""
+    center, size = _ball_sizes(plane, k)
+    return center & (size <= k)
+
+
+def noise_ball_cuda(plane: torch.Tensor, k: int) -> torch.Tensor:
+    expect(plane, "plane", (torch.bool, torch.uint8), 3)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"ball radius k={k} outside 1..{MAX_K}")
+    b, h, w = plane.shape
+    small = torch.empty((b, h, w), dtype=torch.bool, device=plane.device)
+    _build.check(_build.load().pft_noise_ball(
+        plane.data_ptr(), small.data_ptr(), b, h, w, k,
+        _build.stream_of(plane)), "pft_noise_ball")
+    launches["noise_ball"] += 1
+    return small
+
+
+def noise_ball(plane: torch.Tensor, k: int) -> torch.Tensor:
+    """Pixels of 8-connected clusters with <= k members (1 <= k <= 15),
+    by the direct ball count."""
+    if use_kernel(plane):
+        return noise_ball_cuda(plane, k)
+    return noise_ball_plain(plane, k)
+
+
 def small_cluster_mask_cert(mask: torch.Tensor, k: int) -> torch.Tensor:
     """Pixels of 8-connected clusters with <= k members, bool [B,H,W].
 
@@ -140,10 +179,8 @@ def small_cluster_mask_cert(mask: torch.Tensor, k: int) -> torch.Tensor:
     graph ball has >= k+1 members (a connected (k+1)-subtree has
     diameter <= k, so its centre reaches all of it in ceil(k/2) steps);
     a cluster of <= k pixels never does. So the packed flood from those
-    certificates reaches exactly the big clusters. Exact for 1 <= k <= 15:
-    the flood has no size limit here."""
-    if not 1 <= k <= 2 * MAX_J - 1:
-        raise ValueError(f"intensity k={k} outside 1..{2 * MAX_J - 1}")
+    certificates reaches exactly the big clusters. Exact for every k >= 1
+    (the flood has no size limit here); the kernel takes k <= 15."""
     b, h, w = mask.shape
     certw, maskw = noise_cert(mask, (k + 1) // 2, k + 1)
     big = unpack_rows(flood_packed(certw, maskw, h, w, leap=1), h)

@@ -1,10 +1,11 @@
 """Flood fill and small-cluster mask (port of the subset of
-`libpillowfight_tpu/ops/morph.py` the cleanup chain uses).
+`libpillowfight_tpu/ops/morph.py` the cleanup chain and canny use).
 
-Both run on bit-packed planes through the wrappers of `ops/cuda`: the
-hand-written kernels for CUDA tensors, their plain PyTorch versions for
-CPU tensors. The flood is an exact fixed point, so its result does not
-depend on the round structure, only on the connectivity.
+The flood and the small-cluster mask up to k = 15 run through the
+wrappers of `ops/cuda`: the hand-written kernels for CUDA tensors, their
+plain PyTorch versions for CPU tensors. The flood is an exact fixed
+point, so its result does not depend on the round structure, only on the
+connectivity.
 """
 
 from __future__ import annotations
@@ -12,8 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .cuda.flood_packed import flood_packed, pack_rows, unpack_rows
-from .cuda.noise import small_cluster_mask_cert
+from .cuda.flood_packed import flood_packed, lsr, pack_rows, unpack_rows
+from .cuda.noise import _i32, _popcount, noise_ball, small_cluster_mask_cert
 
 
 def dilate_cheb(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -44,8 +45,92 @@ def flood_reach(seeds: torch.Tensor, mask: torch.Tensor,
 
 def small_cluster_mask(mask: torch.Tensor, k: int,
                        connectivity: int = 8) -> torch.Tensor:
-    """Pixels whose 8-connected cluster has <= k members (1 <= k <= 15),
-    by the certificate sweep plus the packed flood."""
+    """Pixels whose 8-connected cluster has <= k members, bool [B,H,W].
+    Exact for every k, dispatched as the reference dispatches on its
+    accelerator:
+
+    * k = 1: the direct ball count (kernel `noise_ball`);
+    * 2 <= k <= 15: the certificate sweep plus the packed flood;
+    * k >= 16: the bitboard formulation in plain torch, as the reference
+      computes it in XLA outside any Pallas kernel.
+    k <= 0 erases nothing."""
     if connectivity != 8:
         raise ValueError("noisefilter clusters are 8-connected")
-    return small_cluster_mask_cert(mask.to(torch.bool), k)
+    mask = mask.to(torch.bool)
+    if k < 1:
+        return torch.zeros_like(mask)
+    if k == 1:
+        return noise_ball(mask, 1)
+    if k <= 15:
+        return small_cluster_mask_cert(mask, k)
+    return small_cluster_mask_bitboard(mask, k)
+
+
+def small_cluster_mask_bitboard(mask: torch.Tensor, k: int) -> torch.Tensor:
+    """The reference's XLA formulation (`morph.small_cluster_mask`, the
+    path past the Pallas kernels): each pixel carries a (2k+1)^2-bit board
+    of the window offsets reachable within j steps through the mask; after
+    k dilation steps |ball| <= k iff the cluster has <= k pixels.
+
+    The board spans ceil((2k+1)^2/32) int32 planes (35 at k = 16), and a
+    shift by (ey, ex) moves it by ey*(2k+1)+ex bits, which may cross more
+    than a word. The reference runs no kernel here: this plain version is
+    the port's counterpart on either device, not a fallback."""
+    b, h, w = mask.shape
+    s = 2 * k + 1
+    nb = s * s
+    nw = (nb + 31) // 32
+    dev = mask.device
+    mp = F.pad(mask.to(torch.int32), (k, k, k, k))
+    m_words = [torch.zeros((b, h, w), dtype=torch.int32, device=dev)
+               for _ in range(nw)]
+    for dy in range(-k, k + 1):
+        for dx in range(-k, k + 1):
+            wi, o = divmod((dy + k) * s + (dx + k), 32)
+            m_words[wi] |= mp[:, k + dy: k + dy + h, k + dx: k + dx + w] << o
+
+    def valid_word(ex: int, wi: int) -> int:
+        """Bits of word wi that stay inside the window after a shift of
+        ex columns (the rest aliased a neighbouring window row)."""
+        v = 0
+        for bit in range(32):
+            bb = wi * 32 + bit
+            if bb < nb and -k <= bb % s - k - ex <= k:
+                v |= 1 << bit
+        return _i32(v)
+
+    dirs = [(ey, ex) for ey in (-1, 0, 1) for ex in (-1, 0, 1)
+            if (ey, ex) != (0, 0)]
+    valid = {d: [valid_word(d[1], wi) for wi in range(nw)] for d in dirs}
+    zero = torch.zeros((b, h, w), dtype=torch.int32, device=dev)
+
+    def bit_shift(words, amt):
+        """The nb-bit board shifted by amt bits, zero fill: a whole-word
+        offset plus a sub-word bit offset."""
+        wo, bo = divmod(abs(amt), 32)
+        out = []
+        for wi in range(nw):
+            src, carry = (wi - wo, wi - wo - 1) if amt > 0 else (
+                wi + wo, wi + wo + 1)
+            v = zero
+            if 0 <= src < nw:
+                v = words[src] if bo == 0 else (
+                    words[src] << bo if amt > 0 else lsr(words[src], bo))
+            if bo and 0 <= carry < nw:
+                v = v | (lsr(words[carry], 32 - bo) if amt > 0
+                         else words[carry] << (32 - bo))
+            out.append(v)
+        return out
+
+    cw, co = divmod(k * s + k, 32)
+    r = [torch.where(mask, _i32(1 << co), 0).to(torch.int32) if wi == cw
+         else zero for wi in range(nw)]
+    for _ in range(k):
+        acc = list(r)
+        for d in dirs:
+            shifted = bit_shift(r, d[0] * s + d[1])
+            for wi in range(nw):
+                acc[wi] = acc[wi] | (shifted[wi] & valid[d][wi])
+        r = [acc[wi] & m_words[wi] for wi in range(nw)]
+    size = sum(_popcount(x) for x in r)
+    return mask & (size <= k)

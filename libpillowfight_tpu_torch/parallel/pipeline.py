@@ -1,10 +1,10 @@
 """Filter pipelines (port of `libpillowfight_tpu/parallel/pipeline.py`).
 
 A spec is a tuple of (filter_name, kwargs) pairs, the same spec the JAX
-package takes. Consecutive unpaper filters run as one group threading
-two bool planes (dark, non-white) between the stages: a wiped pixel
-becomes exactly white, so `plane & ~wipe` equals re-deriving the plane
-from the wiped page.
+package takes. Consecutive unpaper filters run as one group on int32
+words, threading two bool planes (dark, non-white) between the stages: a
+wiped pixel becomes exactly white, so `plane & ~wipe` equals re-deriving
+the plane from the wiped page. Every other filter runs on uint8 RGBA.
 """
 
 from __future__ import annotations
@@ -17,6 +17,10 @@ from ..core import constants as C
 from ..core.bitmap import (ensure_batched, maybe_unbatch, pages_to_words,
                            rgba_to_gray, wipe_white_words, words_to_gray,
                            words_to_pages, words_to_s3)
+from ..ops.ace import ace
+from ..ops.canny import canny
+from ..ops.gaussian import gaussian
+from ..ops.sobel import sobel
 from ..ops.unpaper.blackfilter import blackfilter_wipe, blackfilter_wipe_dark
 from ..ops.unpaper.blurfilter import blurfilter_wipe, blurfilter_wipe_nonwhite
 from ..ops.unpaper.border import border_wipe, border_wipe_dark
@@ -26,13 +30,11 @@ from ..ops.unpaper.masks import masks_wipe, masks_wipe_dark
 from ..ops.unpaper.noisefilter import noisefilter_wipe, noisefilter_wipe_nonwhite
 
 # filters of the JAX package still to be ported -> the ROADMAP slice
-_NOT_PORTED = {
-    "gaussian": "slice 2 (the gradient stack)",
-    "sobel": "slice 2 (the gradient stack)",
-    "canny": "slice 2 (the gradient stack)",
-    "ace": "slice 3 (ACE)",
-    "swt": "slice 4 (SWT)",
-}
+_NOT_PORTED = {"swt": "slice 4 (SWT)"}
+
+# filters that run on uint8 RGBA pages
+_PAGE_FILTERS = {"ace": ace, "canny": canny, "gaussian": gaussian,
+                 "sobel": sobel}
 
 # gray-plane wipe of each unpaper filter (the fallback path)
 _WIPES = {
@@ -44,7 +46,7 @@ _WIPES = {
     "unpaper_border": border_wipe,
 }
 
-_FILTERS = sorted([*_WIPES, *_NOT_PORTED])
+_FILTERS = sorted([*_WIPES, *_PAGE_FILTERS, *_NOT_PORTED])
 
 DOCUMENT_CLEANUP = (
     ("unpaper_blackfilter", ()),
@@ -54,6 +56,8 @@ DOCUMENT_CLEANUP = (
     ("unpaper_grayfilter", ()),
     ("unpaper_border", ()),
 )
+
+EDGE_STACK = (("canny", ()),)
 
 
 def normalize_spec(spec: Iterable) -> tuple:
@@ -131,32 +135,42 @@ def _default_black_threshold(group) -> bool:
 def run_pipeline(pages: torch.Tensor, spec: tuple) -> torch.Tensor:
     """Apply a normalized spec. Takes uint8 RGBA [B,H,W,4] or int32 words
     [B,H,W] (or one page) and returns the same form, on the input's
-    device."""
-    pages, unb = ensure_batched(pages)
-    in_words = pages.dtype == torch.int32
-    if not in_words and pages.dtype != torch.uint8:
+    device. A run of unpaper filters works on words; any other filter on
+    RGBA, converted to before it and back at the end."""
+    x, unb = ensure_batched(pages)
+    in_words = x.dtype == torch.int32
+    if not in_words and x.dtype != torch.uint8:
         raise TypeError(f"pages must be uint8 RGBA or int32 words, got "
-                        f"{pages.dtype}")
-    words = pages if in_words else pages_to_words(pages)
+                        f"{x.dtype}")
     i, n = 0, len(spec)
     while i < n:
-        name = spec[i][0]
+        name, kwargs = spec[i]
         if name in _NOT_PORTED:
             raise NotImplementedError(
                 f"filter {name!r} is not ported to torch yet: it comes with "
                 f"ROADMAP {_NOT_PORTED[name]}")
+        if name in _PAGE_FILTERS:
+            if x.dtype == torch.int32:
+                x = words_to_pages(x)
+            x = _PAGE_FILTERS[name](x, **dict(kwargs))
+            i += 1
+            continue
         j = i
         while j < n and spec[j][0] in _WIPES:
             j += 1
         group = spec[i:j]
+        words = x if x.dtype == torch.int32 else pages_to_words(x)
         if _default_black_threshold(group):
-            words = _run_unpaper_group(words, group)
+            x = _run_unpaper_group(words, group)
         else:
-            words = pages_to_words(
+            x = pages_to_words(
                 _run_unpaper_group_gray(words_to_pages(words), group))
         i = j
-    out = words if in_words else words_to_pages(words)
-    return maybe_unbatch(out, unb)
+    if in_words and x.dtype == torch.uint8:
+        x = pages_to_words(x)
+    elif not in_words and x.dtype == torch.int32:
+        x = words_to_pages(x)
+    return maybe_unbatch(x, unb)
 
 
 def compile_pipeline(spec: Iterable):

@@ -15,7 +15,9 @@ from libpillowfight_tpu.core import constants as JC
 from libpillowfight_tpu.ops.unpaper import common as jcommon
 from libpillowfight_tpu_torch.core import bitmap as tbm
 from libpillowfight_tpu_torch.core import constants as TC
-from libpillowfight_tpu_torch.ops.cuda import (flood_packed as tflood,
+from libpillowfight_tpu_torch.ops.cuda import (ace as tace,
+                                               flood_packed as tflood,
+                                               gaussian as tgauss,
                                                linecount as tlc, noise as tnoise)
 from libpillowfight_tpu_torch.ops.unpaper import common as tcommon
 
@@ -31,6 +33,10 @@ def test_import_leaves_jax_out():
     code = ("import sys, libpillowfight_tpu_torch, "
             "libpillowfight_tpu_torch.ops.morph, "
             "libpillowfight_tpu_torch.ops.unpaper, "
+            "libpillowfight_tpu_torch.ops.gaussian, "
+            "libpillowfight_tpu_torch.ops.sobel, "
+            "libpillowfight_tpu_torch.ops.canny, "
+            "libpillowfight_tpu_torch.ops.ace, "
             "libpillowfight_tpu_torch._build; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'libpillowfight_tpu' not in sys.modules")
@@ -132,13 +138,20 @@ def test_cuda_path_never_takes_cpu_tensors():
                  lambda: tflood.unpack_rows_cuda(words, 40),
                  lambda: tflood.flood_round_cuda(
                      words, words.clone(), 1, (words.clone(), words.clone())),
-                 lambda: tnoise.noise_cert_cuda(plane, 2, 5)):
+                 lambda: tnoise.noise_cert_cuda(plane, 2, 5),
+                 lambda: tnoise.noise_ball_cuda(plane, 1),
+                 lambda: tgauss.gaussian_sep_cuda(plane.float(), (1.0,)),
+                 lambda: tace.ace_spray_cuda(
+                     plane.float()[None].expand(1, 3, 40, 33), words[0],
+                     words[0], words[0].float()[None], 10.0, 1000.0)):
         with pytest.raises(ValueError, match="CUDA tensors only"):
             call()
     meta = plane.to("meta")
     for call in (lambda: tlc.line_counts(meta),
                  lambda: tflood.pack_rows(meta),
                  lambda: tnoise.noise_cert(meta, 2, 5),
+                 lambda: tnoise.noise_ball(meta, 1),
+                 lambda: tgauss.gaussian_sep(meta.float(), (1.0,)),
                  lambda: tflood.flood_packed(words.to("meta"),
                                              words.to("meta"), 40, 33)):
         with pytest.raises(ValueError, match="device meta"):

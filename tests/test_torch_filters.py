@@ -63,6 +63,9 @@ CORES = {
     "noisefilter": (lambda p: tnoise.noisefilter_wipe_nonwhite(p["nonwhite"]),
                     lambda p: jnoise.noisefilter_wipe_nonwhite(
                         _j(p["nonwhite"]))),
+    "noisefilter_k1": (
+        lambda p: tnoise.noisefilter_wipe_nonwhite(p["nonwhite"], 1),
+        lambda p: jnoise.noisefilter_wipe_nonwhite(_j(p["nonwhite"]), 1)),
     "blurfilter_quiet": (
         lambda p: tblur.blurfilter_wipe_nonwhite(p["quiet"]),
         lambda p: jblur.blurfilter_wipe_nonwhite(_j(p["quiet"]))),

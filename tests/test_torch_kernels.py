@@ -5,12 +5,15 @@ themselves are held against these plain versions by chip_smoke.py)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.ndimage
 import torch
 
+from libpillowfight_tpu.ops import morph as jmorph
 from libpillowfight_tpu.ops.pallas.flood_packed import (flood_reach_packed,
                                                         pack_rows, unpack_rows)
 from libpillowfight_tpu.ops.pallas.linecount_kernel import line_counts_pallas
-from libpillowfight_tpu.ops.pallas.noise_kernel import small_cluster_mask_pallas
+from libpillowfight_tpu.ops.pallas.noise_kernel import (_ball_sweep,
+                                                        small_cluster_mask_pallas)
 from libpillowfight_tpu_torch.ops import morph as tmorph
 from libpillowfight_tpu_torch.ops.cuda import flood_packed as tflood
 from libpillowfight_tpu_torch.ops.cuda import linecount as tlc
@@ -108,5 +111,53 @@ def test_noise_cert_words(rng):
                                                 interpret=True))
     got = tmorph.small_cluster_mask(torch.from_numpy(mask), 15)
     np.testing.assert_array_equal(got.numpy(), want)
-    with pytest.raises(ValueError, match="k=16"):
-        tmorph.small_cluster_mask(torch.from_numpy(mask), 16)
+
+
+def test_noise_cert_words_k16_matches_jax(rng):
+    """k >= 16 runs the reference's bitboard formulation (no kernel in
+    either package), where the port used to raise ValueError. On a
+    40 x 48 page: the reference's XLA form unrolls 35 words x 8
+    directions x 16 steps and compiles slowly at larger sizes."""
+    mask = rng.random((2, 40, 48)) < 0.3
+    mask[0, 5, 0:17] = True      # a 17-pixel bar (kept), one above
+    mask[0, 4, :] = mask[0, 6, :] = False
+    mask[1, 30, 0:16] = True     # a 16-pixel bar (wiped)
+    mask[1, 29, :] = mask[1, 31, :] = False
+    mask[1, 30, 16] = False
+    want = np.asarray(jmorph.small_cluster_mask(jnp.asarray(mask), 16))
+    got = tmorph.small_cluster_mask(torch.from_numpy(mask), 16).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert not got[0, 5, :17].any() and got[1, 30, :16].all()
+
+
+def _sizes(mask):
+    """Each pixel's 8-connected cluster size (scipy labelling)."""
+    out = np.zeros(mask.shape, np.int64)
+    for i, m in enumerate(mask):
+        lab, _ = scipy.ndimage.label(m, structure=np.ones((3, 3)))
+        out[i] = np.bincount(lab.ravel())[lab] * m
+    return out
+
+
+@pytest.mark.parametrize("density", [0.2, 0.4])
+@pytest.mark.parametrize("k", [1, 2, 5])
+def test_noise_ball_plain_vs_pallas_and_scipy(rng, density, k):
+    """The direct ball count's plain version vs `_ball_sweep` in
+    interpret mode (the TPU kernel `_noise_band_kernel`), and vs scipy's
+    cluster sizes: bit-identical."""
+    mask = rng.random((2, 61, 75)) < density
+    want = np.asarray(_ball_sweep(jnp.asarray(mask), k, k, None, True))
+    got = tnoise.noise_ball(torch.from_numpy(mask), k).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, mask & (_sizes(mask) <= k))
+    assert got.any() and (mask & ~got).any()
+
+
+def test_small_cluster_mask_dispatch(rng):
+    """k = 1 takes the ball count and k <= 0 erases nothing; the
+    certificate route gives the same k = 1 answer."""
+    mask = rng.random((1, 50, 64)) < 0.3
+    t = torch.from_numpy(mask)
+    np.testing.assert_array_equal(tmorph.small_cluster_mask(t, 1).numpy(),
+                                  tnoise.small_cluster_mask_cert(t, 1).numpy())
+    assert not tmorph.small_cluster_mask(t, 0).any()
