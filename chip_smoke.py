@@ -5,22 +5,38 @@
 1. requires a CUDA card (exits non-zero without one);
 2. prints the card's name and power limit (nvidia-smi);
 3. builds the kernels of libpillowfight_tpu_torch/csrc with nvcc;
-4. holds each kernel against its plain PyTorch version on the same CUDA
-   tensors, at the shapes the port's paths give it on A4 300 dpi pages
-   (batch 2), and times both with CUDA events: bit-identical for all but
-   the ACE spray, which is held to f32 rounding (rsqrtf);
-5. drives four paths through the port's run_pipeline on an A4 x 2 batch
-   on the card, each with every launch count set to 0 just before and
-   read just after, and checks that each launched its kernels:
-   - DOCUMENT_CLEANUP, bit-identical to the plain chain run on the CPU;
+4. holds each of the ten kernels against its plain PyTorch version on the
+   same CUDA tensors, at the shapes the port's paths give it (A4 300 dpi
+   x 2; the sweep flood at A4 600 dpi x 2), and times both with CUDA
+   events: bit-identical for all but the ACE spray, which is held to f32
+   rounding (rsqrtf). Beside each time it prints the kernel's bound (the
+   least time the card could take: compulsory bytes over the memory rate,
+   or operations over the f32 rate) and, where one PyTorch call computes
+   the same function, that call's time;
+5. drives six paths through the port's run_pipeline on the card, each
+   with every launch count set to 0 just before and read just after, and
+   checks that each launched its kernels:
+   - DOCUMENT_CLEANUP at A4 x 2, bit-identical to the plain chain run on
+     the CPU;
    - EDGE_STACK (canny), within the canny bar of the plain stack on the
      CPU (<= 0.1% of edge pixels differ);
    - ace (shared samples drawn from a seed), <= 1 LSB from its plain
-     version on the card (the CPU plain at S = 100 on 17 MP is slow);
+     version on the card;
    - DOCUMENT_CLEANUP with noisefilter intensity 1 (the direct ball
      count), bit-identical to the plain chain on the CPU;
-6. times the cleanup chain, EDGE_STACK and ace (100 samples) on A4 x 16
-   (two distinct dirty batches, median of CUDA-event times), prints MP/s;
+   - swt (mode 0) at A4 x 2 on pages with glyphs: bit-identical to the
+     same swt with every kernel's plain version on the card, letters
+     found, and on a small page of the same kind within the SWT bar
+     (letter-mask IoU >= 0.99) of swt on the CPU (a crop would not do:
+     canny's thresholds follow the page's rim); modes 1 and 2 once each,
+     checked against the letter mask and the boxes the stage functions
+     give;
+   - DOCUMENT_CLEANUP at A4 600 dpi x 2 (the sweep flood's route),
+     bit-identical to the plain chain on the CPU;
+6. times swt, the cleanup chain, EDGE_STACK and ace (100 samples) on
+   A4 x 16 and the cleanup chain on A4 600 dpi x 4 (two distinct dirty
+   batches, median of CUDA-event times), prints MP/s, the stages of swt
+   and the device's idle share during swt;
 7. prints the kernels line (JSON), then the result line (JSON), last.
 
 Any failed phase raises, and the exit code is then non-zero.
@@ -28,6 +44,7 @@ Any failed phase raises, and the exit code is then non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -37,11 +54,19 @@ import time
 import torch
 
 A4_H, A4_W = 3508, 2480
-CHECK_BATCH, TIME_BATCH = 2, 16
+A4_600_H, A4_600_W = 7016, 4960
+CHECK_BATCH, TIME_BATCH, TIME_BATCH_600 = 2, 16, 4
 TIME_ITERS = 6
 ACE_SEED = 7
 CANNY_BAR = 0.001     # share of edge pixels that may differ
 ACE_SPRAY_RTOL = 1e-5  # of the largest possible sum (see check_kernels)
+SWT_IOU_BAR = 0.99    # letter-mask IoU, card against CPU
+SWT_SMALL = (800, 1000)  # a page the CPU takes about ten seconds for
+
+# the card's published peaks (H100 SXM data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+ACE_OPS_PER_PIXEL_SAMPLE = 25  # f32 operations, counted in ace_spray.cu
 
 _PALLAS = "libpillowfight_tpu/ops/pallas/"
 _CSRC = "libpillowfight_tpu_torch/csrc/"
@@ -55,6 +80,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "gaussian_sep": (_CSRC + "gaussian_sep.cu",
                      _PALLAS + "gaussian_kernel.py:35"),
     "ace_spray": (_CSRC + "ace_spray.cu", _PALLAS + "ace_kernel.py:33"),
+    "label_links": (_CSRC + "label_links.cu", _PALLAS + "flood_kernel.py:382"),
+    "flood_sweep": (_CSRC + "flood_sweep.cu", _PALLAS + "flood_kernel.py:156"),
 }
 
 
@@ -86,34 +113,162 @@ def max_abs_err(a, b) -> float:
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
 
 
-def check_kernels(words2: torch.Tensor) -> dict:
-    """Each kernel vs its plain version on one A4 x 2 batch's planes."""
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, n_ops: float = 0.0) -> dict:
+    """The least time for the work: each input read once and each output
+    written once at the card's memory rate, or the f32 operations at the
+    card's rate outside the tensor cores, whichever is longer."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def words_on(pages, dev) -> torch.Tensor:
+    """uint8 RGBA pages (numpy) -> int32 words on dev."""
+    return torch.from_numpy(pages).view(torch.int32).squeeze(-1).to(dev)
+
+
+def blackfilter_flood_inputs(gray):
+    """(seeds, dark) of the blackfilter's flood, as the chain builds
+    them."""
+    from libpillowfight_tpu_torch.ops.unpaper.common import (
+        block_counts, coverage_from_blocks, dark_mask, f32)
+
+    dark = dark_mask(gray)
+    counts = block_counts(dark, 20, 5)
+    seeds = coverage_from_blocks(counts >= f32(380.0, counts), dark.shape,
+                                 20, 5) & dark
+    return seeds, dark
+
+
+class Stages:
+    """Device time by stage name, from CUDA events around each stage."""
+
+    def __init__(self):
+        self.ms = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        torch.cuda.synchronize()
+        self.ms[name] = self.ms.get(name, 0.0) + start.elapsed_time(end)
+
+
+def swt_stages(words: torch.Tensor, max_len: int = 128) -> dict:
+    """SWT taken stage by stage through the port's own stage functions,
+    as `swt` strings them together: the planes it builds on the way (the
+    label kernel's inputs, the letter mask, the boxes) and each stage's
+    device time."""
+    from libpillowfight_tpu_torch.core.bitmap import words_to_gray
+    from libpillowfight_tpu_torch.ops import swt as S
+    from libpillowfight_tpu_torch.ops.canny import (canny_gradients,
+                                                    canny_strong_weak)
+    from libpillowfight_tpu_torch.ops.morph import (flood_reach,
+                                                    label_components_links)
+
+    st = Stages()
+    b, h, w = words.shape
+    with st("gray"):
+        gray = words_to_gray(words)
+    with st("gradients and edges"):
+        gx, gy = canny_gradients(gray)
+        strong, weak = canny_strong_weak(gx, gy)
+        edges = flood_reach(strong, weak)
+    step = max(1, S._MAPS_CHUNK_PIXELS // (h * w))
+    minus, plus = [], []
+    for i in range(0, b, step):
+        part = slice(i, i + step)
+        with st("width maps, pass 1"):
+            edge_cls = S._edge_classes(edges[part], gx[part], gy[part])
+            chains, maps, a_enc = S._width_pass(edge_cls, max_len)
+        with st("ray medians"):
+            med_map = {s: S._ray_medians(maps[s], a_enc[s]) for s in (-1, 1)}
+        with st("width maps, pass 2"):
+            res = S._median_pass(edge_cls, chains, maps, med_map, max_len)
+        minus.append(res[-1])
+        plus.append(res[1])
+        del edge_cls, chains, maps, a_enc, med_map, res
+    del gx, gy
+    minus, plus = torch.cat(minus), torch.cat(plus)
+    max_runs, max_letters = max(h * w // 32, 1024), max(h * w // 2048, 1024)
+    valid, links = [], {d: [] for d in S.OFFSETS}
+    with st("labelling"):  # links and labels alone, as the letter pass makes them
+        med = S._median_gray(gray)
+        for i in range(b):
+            neg = gray[i] < med[i]
+            sw = torch.where(neg, minus[i], torch.where(
+                gray[i] > med[i], plus[i], S._INF))
+            ok = sw < S._INF
+            page_links = S._letter_links(sw, ok, neg)
+            label_components_links(ok[None], page_links)
+            if b <= CHECK_BATCH:  # kept for the label kernel's check
+                valid.append(ok[None])
+                for d in S.OFFSETS:
+                    links[d].append(page_links[d])
+            del neg, sw, ok, page_links
+    with st("letter pass (labelling included)"):
+        letter, boxes, boxes_ok, n_runs, n_letters = S._letter_mask(
+            gray, minus, plus, max_letters, max_runs)
+    del minus, plus
+    with st("output"):
+        alpha = words & -0x1000000
+        out = S._gray_word(torch.where(
+            letter, torch.zeros_like(words), 255), alpha)
+    st.ms["letter statistics"] = (st.ms.pop("letter pass (labelling included)")
+                                  - st.ms["labelling"])
+    return {"ms": st.ms, "gray": gray, "strong": strong, "weak": weak,
+            "valid": torch.cat(valid) if valid else None,
+            "links": {d: torch.cat(v) for d, v in links.items()} if valid
+            else None,
+            "letter": letter, "boxes": boxes, "boxes_ok": boxes_ok,
+            "n_runs": n_runs, "n_letters": n_letters, "max_runs": max_runs,
+            "max_letters": max_letters, "out": out}
+
+
+def check_kernels(words2, swt2: dict, words600) -> dict:
+    """Each kernel vs its plain version: on one A4 x 2 batch's planes,
+    on the planes SWT builds on an A4 x 2 batch with glyphs (`swt2`), and
+    the sweep flood on an A4 600 dpi x 2 batch."""
+    import torch.nn.functional as F
+
     from libpillowfight_tpu_torch.core import constants as C
     from libpillowfight_tpu_torch.core.bitmap import words_to_gray, words_to_pages
     from libpillowfight_tpu_torch.ops import ace as tace
     from libpillowfight_tpu_torch.ops.conv import gaussian_taps
     from libpillowfight_tpu_torch.ops.cuda import ace as spray
     from libpillowfight_tpu_torch.ops.cuda import flood_packed as fp
+    from libpillowfight_tpu_torch.ops.cuda import flood_sweep as fs
     from libpillowfight_tpu_torch.ops.cuda import gaussian as gs
+    from libpillowfight_tpu_torch.ops.cuda import label as lb
     from libpillowfight_tpu_torch.ops.cuda import linecount as lc
     from libpillowfight_tpu_torch.ops.cuda import noise
-    from libpillowfight_tpu_torch.ops.unpaper.common import (
-        block_counts, coverage_from_blocks, dark_mask, f32, nonwhite_mask)
+    from libpillowfight_tpu_torch.ops.unpaper.common import (dark_mask,
+                                                             nonwhite_mask)
 
     b, h, w = words2.shape
     gray = words_to_gray(words2)  # canny's gray plane of the same pages
     dark, nonwhite = dark_mask(gray), nonwhite_mask(gray)
-    # the blackfilter flood's inputs, as the chain builds them
-    counts = block_counts(dark, 20, 5)
-    seeds = coverage_from_blocks(counts >= f32(380.0, counts), dark.shape,
-                                 20, 5) & dark
+    seeds, _ = blackfilter_flood_inputs(gray)
     seeds_w, dark_w = fp.pack_rows_plain(seeds), fp.pack_rows_plain(dark)
     cert_w, nonwhite_w = noise.noise_cert_plain(nonwhite, 2, 5)
     taps = gaussian_taps(C.CANNY_GAUSSIAN_SIGMA, C.CANNY_GAUSSIAN_NB_STDDEV)
+    tap_row = torch.tensor(taps, dtype=torch.float32,
+                           device=gray.device).view(1, 1, 1, -1)
     sy, sx = tace.sample_coords(ACE_SEED, b, C.ACE_DEFAULT_NB_SAMPLES, h, w)
     sy, sx = sy.to(words2.device), sx.to(words2.device)
     planar, sval = tace.spray_inputs(words_to_pages(words2), sy, sx)
     slope, limit = C.ACE_DEFAULT_SLOPE, C.ACE_DEFAULT_LIMIT
+    valid, links = swt2["valid"], swt2["links"]
+    seeds600, dark600 = blackfilter_flood_inputs(words_to_gray(words600))
+    h6, w6 = dark600.shape[1:]
 
     def exact(got, want):
         err = max_abs_err(got, want)
@@ -124,47 +279,77 @@ def check_kernels(words2: torch.Tensor) -> dict:
         limit * invd; rsqrtf is ~2 ulp from the plain rsqrt, and the
         sums run in the same order: both outputs are held to
         ACE_SPRAY_RTOL of their largest possible magnitude."""
-        bound = float(want[1].max())
+        top = float(want[1].max())
         err_n, err_i = max_abs_err(got[0], want[0]), max_abs_err(got[1],
                                                                  want[1])
-        ok = (err_n <= ACE_SPRAY_RTOL * limit * bound
-              and err_i <= ACE_SPRAY_RTOL * bound)
+        ok = (err_n <= ACE_SPRAY_RTOL * limit * top
+              and err_i <= ACE_SPRAY_RTOL * top)
         return max(err_n, err_i), ok
 
+    def blur_library():
+        r = len(taps) // 2
+        rows = F.conv2d(gray[:, None], tap_row, padding=(0, r))
+        return F.conv2d(rows, tap_row.transpose(2, 3), padding=(r, 0))
+
+    # name -> (kernel, plain, bar, inputs, f32 operations, one PyTorch
+    # call for the same function or None)
     cases = {
         "line_counts": (lambda: lc.line_counts_cuda(dark),
-                        lambda: lc.line_counts_plain(dark), exact),
+                        lambda: lc.line_counts_plain(dark), exact, [dark], 0,
+                        lambda: (dark.sum(2), dark.sum(1))),
         "pack_rows": (lambda: fp.pack_rows_cuda(dark),
-                      lambda: fp.pack_rows_plain(dark), exact),
+                      lambda: fp.pack_rows_plain(dark), exact, [dark], 0,
+                      None),
         "unpack_rows": (lambda: fp.unpack_rows_cuda(dark_w, h),
-                        lambda: fp.unpack_rows_plain(dark_w, h), exact),
+                        lambda: fp.unpack_rows_plain(dark_w, h), exact,
+                        [dark_w], 0, None),
         "flood_round": (
             lambda: fp.flood_packed_cuda(seeds_w, dark_w, h, w, leap=20),
             lambda: fp.flood_packed_plain(seeds_w, dark_w, h, w, leap=20),
-            exact),
+            exact, [seeds_w, dark_w], 0, None),
         "noise_cert": (lambda: noise.noise_cert_cuda(nonwhite, 2, 5),
-                       lambda: noise.noise_cert_plain(nonwhite, 2, 5), exact),
+                       lambda: noise.noise_cert_plain(nonwhite, 2, 5), exact,
+                       [nonwhite], 0, None),
         "noise_ball": (lambda: noise.noise_ball_cuda(nonwhite, 1),
-                       lambda: noise.noise_ball_plain(nonwhite, 1), exact),
+                       lambda: noise.noise_ball_plain(nonwhite, 1), exact,
+                       [nonwhite], 0, None),
         "gaussian_sep": (lambda: gs.gaussian_sep_cuda(gray, taps),
-                         lambda: gs.gaussian_sep_plain(gray, taps), exact),
+                         lambda: gs.gaussian_sep_plain(gray, taps), exact,
+                         [gray], 4 * len(taps) * gray.numel(), blur_library),
         "ace_spray": (
             lambda: spray.ace_spray_cuda(planar, sy, sx, sval, slope, limit),
             lambda: spray.ace_spray_plain(planar, sy, sx, sval, slope, limit),
-            spray_bar),
+            spray_bar, [planar, sy, sx, sval],
+            ACE_OPS_PER_PIXEL_SAMPLE * sy.shape[-1] * b * h * w, None),
+        "label_links": (lambda: lb.label_links_cuda(valid, links),
+                        lambda: lb.label_links_plain(valid, links), exact,
+                        [valid, *links.values()], 0, None),
+        "flood_sweep": (
+            lambda: fs.flood_sweep_cuda(seeds600, dark600, leap=20),
+            lambda: fs.flood_sweep_plain(seeds600, dark600, leap=20),
+            exact, [seeds600, dark600], 0, None),
     }
     out = {}
-    for name, (kernel, plain, bar) in cases.items():
+    for name, (kernel, plain, bar, inputs, n_ops, library) in cases.items():
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         err, ok = bar(got, want)
         if not ok:
             raise AssertionError(f"{name}: kernel differs from plain, "
                                  f"max |diff| {err}")
-        out[name] = {"max_abs_err": err, "ms": cuda_ms(kernel),
-                     "plain_ms": cuda_ms(plain)}
-        log(f"kernel {name}: max |diff| {err}; {out[name]['ms']:.4f} ms vs "
-            f"plain {out[name]['plain_ms']:.4f} ms")
+        outputs = got if isinstance(got, tuple) else (got,)
+        out[name] = {
+            "max_abs_err": err, "ms": cuda_ms(kernel),
+            "plain_ms": cuda_ms(plain, iters=2),
+            **bound(nbytes(*inputs, *outputs), n_ops),
+            "library_ms": cuda_ms(library) if library else None}
+        r = out[name]
+        log(f"kernel {name}: max |diff| {err}; {r['ms']:.4f} ms vs plain "
+            f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}; one PyTorch call: "
+            + (f"{r['library_ms']:.4f} ms" if library else "none"))
+        del got, want, outputs
+
     # the noisefilter flood (leap 1, from certificates) too
     got = fp.flood_packed_cuda(cert_w, nonwhite_w, h, w, leap=1)
     want = fp.flood_packed_plain(cert_w, nonwhite_w, h, w, leap=1)
@@ -183,30 +368,129 @@ def check_kernels(words2: torch.Tensor) -> dict:
                        noise.noise_ball_plain(part, k)) != 0.0:
             raise AssertionError(f"noise_ball at k={k} differs from plain")
     log(f"kernel noise_ball k=2..{noise.MAX_K}: bit-identical (A4 x 2, 512 rows)")
+
+    # the label kernel as label_components: the non-white plane, 8- and
+    # 4-connected
+    for what, links_c in (("8-connected", None),
+                          ("4-connected", lb.mask_links(nonwhite, 4))):
+        got = lb.label_links_cuda(nonwhite, links_c)
+        want = lb.label_links_plain(nonwhite, links_c)
+        if max_abs_err(got, want) != 0.0:
+            raise AssertionError(f"label_links ({what}, non-white plane) "
+                                 f"differs from plain")
+        n_comp = int((got == torch.arange(h * w, device=got.device,
+                                          dtype=torch.int32).view(1, h, w))
+                     .sum())
+        ms = cuda_ms(lambda: lb.label_links_cuda(nonwhite, links_c))
+        log(f"kernel label_links as label_components ({what}, non-white "
+            f"plane A4 x {b}): bit-identical, {n_comp} components, "
+            f"{ms:.4f} ms")
+        del got, want
+
+    # random links on a random plane: links that leave the page or meet an
+    # invalid pixel reach the kernel as they are, and must join nothing
+    gen = torch.Generator().manual_seed(1)
+    rvalid = (torch.rand((2, 1000, 700), generator=gen) < 0.45).to(dark.device)
+    rlinks = {d: (torch.rand((2, 1000, 700), generator=gen) < 0.6)
+              .to(dark.device) for d in lb.OFFSETS}
+    if not torch.equal(lb.label_links_cuda(rvalid, rlinks),
+                       lb.label_links_plain(rvalid, rlinks)):
+        raise AssertionError("label_links on random links differs from plain")
+    log("kernel label_links on a random plane with random links "
+        "(2 x 1000 x 700): bit-identical")
+    del rvalid, rlinks
+
+    # the sweep flood against the packed flood, and at leap 1
+    def packed600():
+        return fp.unpack_rows_cuda(fp.flood_packed_cuda(
+            fp.pack_rows_cuda(seeds600), fp.pack_rows_cuda(dark600), h6, w6,
+            leap=20), h6)
+
+    sweep = fs.flood_sweep_cuda(seeds600, dark600, leap=20)
+    if not torch.equal(sweep, packed600()):
+        raise AssertionError("flood_sweep differs from the packed flood at "
+                             "600 dpi, leap 20")
+    before = fs.launches
+    fs.flood_sweep_cuda(seeds600, dark600, leap=20)
+    log(f"flood at A4 600 dpi x {b}, leap 20 (blackfilter inputs, "
+        f"{int(sweep.sum())} pixels reached): sweep flood "
+        f"{out['flood_sweep']['ms']:.4f} ms in {fs.launches - before} "
+        f"sweeps, packed flood (pack and unpack included) "
+        f"{cuda_ms(packed600):.4f} ms, bit-identical")
+    del sweep
+    strong, weak = swt2["strong"], swt2["weak"]
+    got = fs.flood_sweep_cuda(strong, weak, leap=1)
+    before = fs.launches
+    fs.flood_sweep_cuda(strong, weak, leap=1)
+    n_sweeps = fs.launches - before
+    packed = fp.unpack_rows_cuda(fp.flood_packed_cuda(
+        fp.pack_rows_cuda(strong), fp.pack_rows_cuda(weak), h, w, leap=1), h)
+    if not (torch.equal(got, fs.flood_sweep_plain(strong, weak, leap=1))
+            and torch.equal(got, packed)):
+        raise AssertionError("flood_sweep at leap 1 (canny planes) differs "
+                             "from plain or from the packed flood")
+    ms = cuda_ms(lambda: fs.flood_sweep_cuda(strong, weak, leap=1))
+    log(f"kernel flood_sweep (leap 1, canny strong/weak A4 x {b}): "
+        f"bit-identical to plain and to the packed flood, {ms:.4f} ms in "
+        f"{n_sweeps} sweeps")
+    # random planes, where every row and column distance up to the leap
+    # occurs; leap 70 takes the 1024-thread blocks
+    gen = torch.Generator().manual_seed(0)
+    for shape, density, leaps in (((2, 1000, 700), 0.45, (1, 2, 3)),
+                                  ((1, 700, 2100), 0.05, (3, 5, 20, 70))):
+        plane = (torch.rand(shape, generator=gen) < density).to(dark.device)
+        some = (torch.rand(shape, generator=gen) < 5e-4).to(dark.device) & plane
+        for leap in leaps:
+            if not torch.equal(fs.flood_sweep_cuda(some, plane, leap=leap),
+                               fs.flood_sweep_plain(some, plane, leap=leap)):
+                raise AssertionError(f"flood_sweep on a random {shape} "
+                                     f"plane at leap {leap} differs from "
+                                     f"plain")
+    log("kernel flood_sweep on random planes (leap 1, 2, 3 at 45%; 3, 5, "
+        "20, 70 at 5%): bit-identical")
     return out
 
 
 def _counters():
     from libpillowfight_tpu_torch.ops.cuda import ace as spray
     from libpillowfight_tpu_torch.ops.cuda import flood_packed as fp
+    from libpillowfight_tpu_torch.ops.cuda import flood_sweep as fs
     from libpillowfight_tpu_torch.ops.cuda import gaussian as gs
+    from libpillowfight_tpu_torch.ops.cuda import label as lb
     from libpillowfight_tpu_torch.ops.cuda import linecount as lc
     from libpillowfight_tpu_torch.ops.cuda import noise
-    return spray, fp, gs, lc, noise
+    return spray, fp, gs, lc, noise, lb, fs
 
 
 def launch_counts() -> dict:
-    spray, fp, gs, lc, noise = _counters()
+    spray, fp, gs, lc, noise, lb, fs = _counters()
     return {"line_counts": lc.launches, **fp.launches, **noise.launches,
-            "gaussian_sep": gs.launches, "ace_spray": spray.launches}
+            "gaussian_sep": gs.launches, "ace_spray": spray.launches,
+            "label_links": lb.launches, "flood_sweep": fs.launches}
 
 
 def reset_launch_counts() -> None:
-    spray, fp, gs, lc, noise = _counters()
+    spray, fp, gs, lc, noise, lb, fs = _counters()
     lc.launches = gs.launches = spray.launches = 0
+    lb.launches = fs.launches = 0
     for d in (fp.launches, noise.launches):
         for k in d:
             d[k] = 0
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every wrapper takes its plain version, whatever the device: the
+    dispatch test of each wrapper module answers False."""
+    mods = _counters()
+    saved = [m.use_kernel for m in mods]
+    for m in mods:
+        m.use_kernel = lambda *tensors: False
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, saved):
+            m.use_kernel = fn
 
 
 def counted(fn, name: str, expect: list) -> tuple:
@@ -223,24 +507,24 @@ def counted(fn, name: str, expect: list) -> tuple:
     return out, counts
 
 
-def check_chain(out_gpu, words2_cpu, spec, name: str) -> None:
+def check_chain(out_gpu, words_cpu, spec, name: str) -> None:
     """Bit-identical to the plain chain on the CPU, and a real wipe."""
     import libpillowfight_tpu_torch as pt
 
     t0 = time.perf_counter()
-    out_cpu = pt.run_pipeline(words2_cpu, spec)
-    log(f"{name}: plain on the CPU (A4 x {CHECK_BATCH}) "
+    out_cpu = pt.run_pipeline(words_cpu, spec)
+    log(f"{name}: plain on the CPU ({tuple(words_cpu.shape)}) "
         f"{time.perf_counter() - t0:.1f} s")
     if not torch.equal(out_gpu.cpu(), out_cpu):
         n = int((out_gpu.cpu() != out_cpu).sum())
         raise AssertionError(f"{name} on the card differs from the plain "
                              f"chain on {n} pixels")
-    changed = int((out_cpu != words2_cpu).sum())
-    if out_cpu.shape != words2_cpu.shape or changed == 0:
+    changed = int((out_cpu != words_cpu).sum())
+    if out_cpu.shape != words_cpu.shape or changed == 0:
         raise AssertionError(f"{name} output {tuple(out_cpu.shape)} "
                              f"wiped {changed} pixels")
-    log(f"{name} A4 x {CHECK_BATCH}: bit-identical to the plain chain "
-        f"({changed} pixels wiped)")
+    log(f"{name} {tuple(words_cpu.shape)}: bit-identical to the plain "
+        f"chain ({changed} pixels wiped)")
 
 
 def check_edges(out_gpu, words2_cpu, spec) -> None:
@@ -294,6 +578,71 @@ def check_ace(out_gpu, words2) -> None:
         f"the card ({n} bytes differ)")
 
 
+def check_swt(out_gpu, words2, swt2: dict, spec, small) -> None:
+    """The swt path (mode 0) against the same swt on plain versions on the
+    card, against the stage functions' letter mask, and on the small page
+    against swt on the CPU; then modes 1 and 2."""
+    import libpillowfight_tpu_torch as pt
+    from libpillowfight_tpu_torch.ops import swt as S
+
+    n_letters, n_runs = swt2["n_letters"].tolist(), swt2["n_runs"].tolist()
+    log(f"swt A4 x {CHECK_BATCH}: letters per page {n_letters} (cap "
+        f"{swt2['max_letters']}), row runs {n_runs} (cap {swt2['max_runs']})")
+    if min(n_letters) == 0:
+        raise AssertionError("swt: a page with glyphs gave no letters")
+    if (max(n_letters) > swt2["max_letters"]
+            or max(n_runs) > swt2["max_runs"]):
+        raise AssertionError("swt: a cap cut the letter pass short")
+    if not torch.equal(out_gpu, swt2["out"]):
+        raise AssertionError("swt through run_pipeline differs from the "
+                             "stage functions' output")
+    t0 = time.perf_counter()
+    with plain_versions():
+        want = pt.run_pipeline(words2, spec)
+    torch.cuda.synchronize()
+    if not torch.equal(out_gpu, want):
+        n = int((out_gpu != want).sum())
+        raise AssertionError(f"swt with the kernels differs from swt with "
+                             f"their plain versions on {n} pixels")
+    log(f"swt A4 x {CHECK_BATCH}: bit-identical to swt with every kernel's "
+        f"plain version on the card ({time.perf_counter() - t0:.1f} s), "
+        f"{int(swt2['letter'].sum())} letter pixels")
+    del want
+
+    got = (pt.swt(small) & 0xFF) == 0
+    t0 = time.perf_counter()
+    ref = (pt.swt(small.cpu()) & 0xFF) == 0
+    iou = float((got.cpu() & ref).sum()) / max(float((got.cpu() | ref).sum()),
+                                               1.0)
+    log(f"swt small page {tuple(small.shape[1:])}: letter-mask IoU "
+        f"{iou:.6f} against swt on the CPU ({time.perf_counter() - t0:.1f} "
+        f"s, {int(ref.sum())} letter pixels; bar {SWT_IOU_BAR})")
+    if int(ref.sum()) == 0 or iou < SWT_IOU_BAR:
+        raise AssertionError(f"swt small page: IoU {iou} below {SWT_IOU_BAR}")
+
+    alpha = words2 & -0x1000000
+    letter = swt2["letter"]
+    g8 = torch.round(swt2["gray"]).clamp(0, 255).to(torch.int32)
+    out1 = pt.run_pipeline(words2, pt.normalize_spec(
+        [("swt", {"output_type": 1})]))
+    if not torch.equal(out1, S._gray_word(torch.where(letter, g8, 255),
+                                          alpha)):
+        raise AssertionError("swt mode 1: not the page's gray on the "
+                             "letters and white elsewhere")
+    out2 = pt.run_pipeline(words2, pt.normalize_spec(
+        [("swt", {"output_type": 2})]))
+    on_box = S._boxes_on_mask(swt2["boxes"], swt2["boxes_ok"],
+                              *words2.shape[1:])
+    changed = out2 != words2
+    if not (torch.equal(out2, torch.where(on_box, alpha | 0xFF, words2))
+            and bool((changed <= on_box).all()) and int(changed.sum()) > 0):
+        raise AssertionError("swt mode 2: a changed pixel is not red on a "
+                             "box perimeter")
+    log(f"swt modes 1 and 2 A4 x {CHECK_BATCH}: shape, alpha and letters "
+        f"hold; {int(swt2['boxes_ok'].sum())} boxes, {int(changed.sum())} "
+        f"pixels drawn, all red on a box perimeter")
+
+
 def time_path(fn, batches, name: str, card: str) -> float:
     fn(batches[0])  # warm-up
     torch.cuda.synchronize()
@@ -308,21 +657,45 @@ def time_path(fn, batches, name: str, card: str) -> float:
         times.append(start.elapsed_time(end))
         del out
     ms = statistics.median(times)
-    mp = TIME_BATCH * A4_H * A4_W / 1e6
-    log(f"{name} A4 x {TIME_BATCH}: median {ms:.2f} ms over {TIME_ITERS} "
-        f"(all: {', '.join(f'{t:.2f}' for t in times)}); "
+    mp = batches[0].numel() / 1e6
+    log(f"{name} {tuple(batches[0].shape)}: median {ms:.2f} ms over "
+        f"{TIME_ITERS} (all: {', '.join(f'{t:.2f}' for t in times)}); "
         f"{mp / (ms / 1e3):.2f} MP/s on {card}")
     return ms
+
+
+def idle_share(fn, x, name: str, wall_ms: float) -> None:
+    """Device time of the kernels of one profiled run, against the
+    path's unprofiled time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(x)
+        torch.cuda.synchronize()
+    # kernel, memcpy and memset rows only: an operator's row repeats the
+    # device time of the kernels it launched
+    busy_us = sum(getattr(e, "self_device_time_total", 0)
+                  or getattr(e, "self_cuda_time_total", 0)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    if busy_us <= 0:
+        log(f"{name}: device idle share not measured (the profiler shows "
+            f"no device time)")
+        return
+    log(f"{name}: {busy_us / 1e3:.2f} ms of kernel time in one profiled "
+        f"run against {wall_ms:.2f} ms unprofiled: device idle share "
+        f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.1%}")
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from bench import _pages
-
     import libpillowfight_tpu_torch as pt
     from libpillowfight_tpu_torch import _build
+    from libpillowfight_tpu_torch.utils.pages import (synthetic_pages,
+                                                      text_pages)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -340,22 +713,27 @@ def main() -> int:
     cleanup = pt.normalize_spec(pt.DOCUMENT_CLEANUP)
     edges = pt.normalize_spec(pt.EDGE_STACK)
     ace_spec = pt.normalize_spec([("ace", {"seed": ACE_SEED})])
+    swt_spec = pt.normalize_spec([("swt", {})])
     cleanup_k1 = pt.normalize_spec(
         [("unpaper_noisefilter", {"intensity": 1}) if name ==
          "unpaper_noisefilter" else (name, kw)
          for name, kw in pt.DOCUMENT_CLEANUP])
-    pages2 = _pages(CHECK_BATCH, A4_H, A4_W)
-    words2_cpu = torch.from_numpy(pages2).view(torch.int32).squeeze(-1)
+    words2_cpu = words_on(synthetic_pages(CHECK_BATCH, A4_H, A4_W), "cpu")
     words2 = words2_cpu.to(dev)
+    text2 = words_on(text_pages(CHECK_BATCH, A4_H, A4_W), dev)
+    words600_cpu = words_on(synthetic_pages(CHECK_BATCH, A4_600_H, A4_600_W),
+                            "cpu")
+    words600 = words600_cpu.to(dev)
 
     # 4. each kernel vs its plain version
-    timings = check_kernels(words2)
+    swt2 = swt_stages(text2)
+    timings = check_kernels(words2, swt2, words600)
 
     # 5. the paths on the card, each counted
     total = dict.fromkeys(KERNELS, 0)
 
-    def drive(spec, name, expect):
-        out, counts = counted(lambda: pt.run_pipeline(words2, spec), name,
+    def drive(spec, name, expect, words=words2):
+        out, counts = counted(lambda: pt.run_pipeline(words, spec), name,
                               expect)
         for k in total:
             total[k] += counts[k]
@@ -374,11 +752,36 @@ def main() -> int:
                 ["line_counts", "pack_rows", "unpack_rows", "flood_round",
                  "noise_ball"])
     check_chain(out, words2_cpu, cleanup_k1, "cleanup chain k=1")
-    del out
+    out = drive(swt_spec, "swt",
+                ["gaussian_sep", "pack_rows", "flood_round", "unpack_rows",
+                 "label_links"], text2)
+    check_swt(out, text2, swt2, swt_spec,
+              words_on(text_pages(1, *SWT_SMALL), dev))
+    del swt2
+    out = drive(cleanup, "cleanup chain, A4 600 dpi",
+                ["flood_sweep", "line_counts", "noise_cert"], words600)
+    check_chain(out, words600_cpu, cleanup, "cleanup chain 600 dpi")
+    del out, words600, words600_cpu
 
-    # 6. throughput at A4 x 16, two distinct dirty batches
-    batches = [torch.from_numpy(_pages(TIME_BATCH, A4_H, A4_W, seed=s))
-               .view(torch.int32).squeeze(-1).to(dev) for s in (0, 1)]
+    # 6. throughput at A4 x 16 (600 dpi: x 4), two distinct dirty batches.
+    # swt goes first: its seconds of device work bring the card's clocks
+    # up after the CPU-only check above, and the shorter paths are timed
+    # on a card that is warm, as under sustained load.
+    batches = [words_on(text_pages(TIME_BATCH, A4_H, A4_W, seed=s), dev)
+               for s in (0, 1)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    swt_ms = time_path(lambda x: pt.run_pipeline(x, swt_spec), batches,
+                       "swt (mode 0)", card)
+    log(f"swt peak device memory: "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    stages = swt_stages(batches[1])
+    log(f"swt stages A4 x {TIME_BATCH} (CUDA events around each stage, ms): "
+        + json.dumps({k: round(v, 2) for k, v in stages["ms"].items()})
+        + f"; letters per page {stages['n_letters'].tolist()[:2]}...")
+    del stages
+    text16 = batches[0]
+    batches = [words_on(synthetic_pages(TIME_BATCH, A4_H, A4_W, seed=s), dev)
+               for s in (0, 1)]
     ms = time_path(lambda x: pt.run_pipeline(x, cleanup), batches,
                    "chain", card)
     log(f"unpaper_cleanup_pipeline_throughput "
@@ -387,6 +790,14 @@ def main() -> int:
               card)
     time_path(lambda x: pt.run_pipeline(x, ace_spec), batches,
               "ace (100 samples)", card)
+    batches = [words_on(synthetic_pages(TIME_BATCH_600, A4_600_H, A4_600_W,
+                                        seed=s), dev) for s in (0, 1)]
+    time_path(lambda x: pt.run_pipeline(x, cleanup), batches,
+              "chain at 600 dpi", card)
+    del batches
+    # last: reading the profiler's trace leaves the card idle for seconds
+    idle_share(lambda x: pt.run_pipeline(x, swt_spec), text16,
+               "swt (mode 0)", swt_ms)
     log(f"peak device memory: "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,5 @@
 """PyTorch + CUDA port of libpillowfight_tpu (the unpaper cleanup chain,
-gaussian, sobel, canny and ACE).
+gaussian, sobel, canny, ACE and SWT).
 
 The JAX package `libpillowfight_tpu` is the reference; this package
 mirrors its layout and is held against it: bit-identical for the cleanup
@@ -15,10 +15,11 @@ from .ops.ace import ace
 from .ops.canny import canny
 from .ops.gaussian import gaussian
 from .ops.sobel import sobel
+from .ops.swt import swt
 from .parallel.pipeline import (DOCUMENT_CLEANUP, EDGE_STACK,
                                 compile_pipeline, normalize_spec,
                                 run_pipeline)
 
 __all__ = ["DOCUMENT_CLEANUP", "EDGE_STACK", "ace", "canny",
            "compile_pipeline", "gaussian", "normalize_spec", "run_pipeline",
-           "sobel"]
+           "sobel", "swt"]

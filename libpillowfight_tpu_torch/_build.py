@@ -43,6 +43,8 @@ _SIGNATURES = {
     "pft_noise_ball": [P, P, I, I, I, I, P],
     "pft_gaussian_sep": [P, P, FP, I, I, I, I, P],
     "pft_ace_spray": [P, P, P, P, P, P, I, I, I, I, F, F, P],
+    "pft_label_links": [P, P, P, I, I, I, P],
+    "pft_flood_sweep": [P, P, P, I, I, I, I, I, I, P],
 }
 
 _lock = threading.Lock()

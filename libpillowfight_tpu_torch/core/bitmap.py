@@ -101,3 +101,14 @@ def normalize(matrix: torch.Tensor) -> torch.Tensor:
     hi = torch.amax(matrix, dim=(-2, -1), keepdim=True)
     span = torch.clamp(hi - lo, min=1e-12)
     return (matrix - lo) * (torch.full_like(span, 255.0) / span)
+
+
+def shift2d(x: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
+    """out[..., y, x] = x[..., y + dy, x + dx], `fill` outside."""
+    h, w = x.shape[-2:]
+    out = torch.full_like(x, fill)
+    y0, y1 = max(0, -dy), min(h, h - dy)
+    x0, x1 = max(0, -dx), min(w, w - dx)
+    if y0 < y1 and x0 < x1:
+        out[..., y0:y1, x0:x1] = x[..., y0 + dy:y1 + dy, x0 + dx:x1 + dx]
+    return out

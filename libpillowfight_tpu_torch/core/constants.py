@@ -1,12 +1,13 @@
 """The constants of the ported filters.
 
 A copy of `libpillowfight_tpu/core/constants.py` (the gaussian, canny,
-ACE and unpaper sections): importing the reference module runs its
+ACE, SWT and unpaper sections): importing the reference module runs its
 package `__init__`, which imports jax. A test pins every value here
 equal to the reference's.
 """
 
 PF_WHITE = 0xFF
+PF_BLACK = 0x00
 
 GAUSSIAN_DEFAULT_SIGMA = 2.0
 GAUSSIAN_DEFAULT_NB_STDDEV = 5   # 1-D half-width ceil(sigma * nb_stddev)
@@ -21,6 +22,21 @@ ACE_DEFAULT_SLOPE = 10.0
 ACE_DEFAULT_LIMIT = 1000.0
 ACE_DEFAULT_NB_THREADS = 2  # kept for API parity; ignored
 ACE_DEFAULT_SEED = 0xACE5EED
+
+SWT_OUTPUT_BW_TEXT = 0
+SWT_OUTPUT_GRAYSCALE_TEXT = 1
+SWT_OUTPUT_ORIGINAL_BOXES = 2
+
+SWT_MAX_RAY_LEN = 128          # bound of a ray, in pixels
+SWT_RAY_ANGLE_TOLERANCE = 0.5235987755982988  # pi/6: opposing-gradient cone
+SWT_CC_SW_RATIO = 3.0          # connect pixels whose SW ratio <= 3
+SWT_LETTER_VARIANCE_RATIO = 0.5    # var(sw) <= ratio * mean(sw)^2 is kept
+SWT_LETTER_ASPECT_RATIO_MAX = 10.0
+SWT_LETTER_DIAMETER_SW_RATIO = 10.0  # diag / mean_sw < 10
+SWT_LETTER_HEIGHT_MIN = 10
+SWT_LETTER_HEIGHT_MAX = 300
+SWT_LETTER_MIN_PIXELS = 38     # reject tiny components
+SWT_MAX_NESTED_LETTERS = 2     # > 2 nested boxes: a frame, not a letter
 
 UNPAPER_BLACK_THRESHOLD = 0.33   # pixel is "black" if gray < 0.33 * 255
 UNPAPER_WHITE_THRESHOLD = 0.9    # pixel is "non-white" if gray < 0.9 * 255

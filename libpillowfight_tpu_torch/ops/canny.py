@@ -57,18 +57,27 @@ def canny_gradients(gray: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return sobel_gradients(smoothed)
 
 
-def canny_edge_mask_from_gradients(gx: torch.Tensor,
-                                   gy: torch.Tensor) -> torch.Tensor:
-    """bool edge mask from smoothed gradients. NMS and the thresholds
-    compare the intensity normalized to [0,255] and rounded to the
-    integer grid, so ridge ties break as in the reference; the strict
-    `nms > 0` guard leaves a flat page (peak 0) without edges."""
+def canny_strong_weak(gx: torch.Tensor, gy: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (strong, weak) bool planes of the double threshold, from
+    smoothed gradients. NMS and the thresholds compare the intensity
+    normalized to [0,255] and rounded to the integer grid, so ridge ties
+    break as in the reference; the strict `nms > 0` guard leaves a flat
+    page (peak 0) without edges."""
     inten_q = torch.round(normalize(hypot(gx, gy)))
     nms = _nms(inten_q, gx, gy)
     peak = torch.amax(nms, dim=(-2, -1), keepdim=True)
     live = nms > 0.0
     strong = (nms >= peak * C.CANNY_HIGH_THRESHOLD_FRACTION) & live
     weak = (nms >= peak * C.CANNY_LOW_THRESHOLD_FRACTION) & live
+    return strong, weak
+
+
+def canny_edge_mask_from_gradients(gx: torch.Tensor,
+                                   gy: torch.Tensor) -> torch.Tensor:
+    """bool edge mask from smoothed gradients: the weak pixels
+    8-connected to a strong one (hysteresis)."""
+    strong, weak = canny_strong_weak(gx, gy)
     return flood_reach(strong, weak, connectivity=8)
 
 

@@ -1,11 +1,12 @@
-"""Flood fill and small-cluster mask (port of the subset of
-`libpillowfight_tpu/ops/morph.py` the cleanup chain and canny use).
+"""Flood fill, component labels and small-cluster mask (port of the
+subset of `libpillowfight_tpu/ops/morph.py` the cleanup chain, canny and
+SWT use).
 
-The flood and the small-cluster mask up to k = 15 run through the
-wrappers of `ops/cuda`: the hand-written kernels for CUDA tensors, their
-plain PyTorch versions for CPU tensors. The flood is an exact fixed
-point, so its result does not depend on the round structure, only on the
-connectivity.
+The flood, the labels and the small-cluster mask up to k = 15 run
+through the wrappers of `ops/cuda`: the hand-written kernels for CUDA
+tensors, their plain PyTorch versions for CPU tensors. The flood and the
+labels are exact fixed points, so their results do not depend on the
+round structure, only on the connectivity.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from .cuda.flood_packed import flood_packed, lsr, pack_rows, unpack_rows
+from .cuda.flood_sweep import flood_sweep
+from .cuda.label import label_links, mask_links
 from .cuda.noise import _i32, _popcount, noise_ball, small_cluster_mask_cert
 
 
@@ -24,11 +27,28 @@ def dilate_cheb(x: torch.Tensor, k: int) -> torch.Tensor:
     return y[:, 0] > 0
 
 
+PACKED_LIMIT_BYTES = 1_500_000
+
+
+def packed_fits(h: int, w: int) -> bool:
+    """The reference's size test for its packed flood: the packed page,
+    ceil(h/32) word rows of w rounded up to 128 lanes, 4 bytes a word,
+    within 1.5 MB. A4 at 300 dpi fits, A4 at 600 dpi does not."""
+    return ((h + 31) // 32) * ((w + 127) // 128 * 128) * 4 <= \
+        PACKED_LIMIT_BYTES
+
+
 def flood_reach(seeds: torch.Tensor, mask: torch.Tensor,
                 connectivity: int = 8, max_iters: int | None = None,
                 leap: int = 1) -> torch.Tensor:
     """All mask pixels 8-connected to a seed, bool [B,H,W] each; mask
     pixels within Chebyshev distance `leap` count as connected.
+
+    Dispatched as the reference dispatches on its accelerator: a page
+    that passes `packed_fits` takes the packed flood, a larger one the
+    sweep flood on byte planes. The threshold is the reference's (what
+    its packed kernel can hold on chip), not a limit of this card: both
+    routes take any page here and give the same exact result.
 
     max_iters=None iterates to the true fixed point (a cap of H*W + 2
     rounds that convergence always beats)."""
@@ -38,9 +58,32 @@ def flood_reach(seeds: torch.Tensor, mask: torch.Tensor,
     b, h, w = mask.shape
     mask = mask.to(torch.bool)
     seeds = seeds.to(torch.bool) & mask
+    if not packed_fits(h, w):
+        return flood_sweep(seeds, mask, leap=leap, max_iters=max_iters)
     out = flood_packed(pack_rows(seeds), pack_rows(mask), h, w, leap=leap,
                        max_iters=max_iters)
     return unpack_rows(out, h)
+
+
+def label_components(mask: torch.Tensor, connectivity: int = 8,
+                     max_iters: int | None = None) -> torch.Tensor:
+    """Component labels of a bool [B,H,W] plane: int32 [B,H,W], the least
+    flat index y*W + x of the pixel's 4- or 8-connected component, H*W on
+    the background. max_iters caps the plain version's rounds only."""
+    mask = mask.to(torch.bool)
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
+    links = None if connectivity == 8 else mask_links(mask, 4)
+    return label_links(mask, links, max_iters)
+
+
+def label_components_links(valid: torch.Tensor, links: dict,
+                           max_iters: int | None = None) -> torch.Tensor:
+    """Component labels under pairwise links (SWT's components of similar
+    stroke width). valid: bool [B,H,W]; links: {(dy,dx): bool [B,H,W]}
+    over (0,1),(1,0),(1,1),(1,-1), links[d][b,y,x] joining (y,x) to
+    (y+dy,x+dx). int32 labels as in `label_components`."""
+    return label_links(valid.to(torch.bool), links, max_iters)
 
 
 def small_cluster_mask(mask: torch.Tensor, k: int,

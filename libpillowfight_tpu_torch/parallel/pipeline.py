@@ -4,7 +4,8 @@ A spec is a tuple of (filter_name, kwargs) pairs, the same spec the JAX
 package takes. Consecutive unpaper filters run as one group on int32
 words, threading two bool planes (dark, non-white) between the stages: a
 wiped pixel becomes exactly white, so `plane & ~wipe` equals re-deriving
-the plane from the wiped page. Every other filter runs on uint8 RGBA.
+the plane from the wiped page. swt takes words or RGBA as they come;
+every other filter runs on uint8 RGBA.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ..ops.ace import ace
 from ..ops.canny import canny
 from ..ops.gaussian import gaussian
 from ..ops.sobel import sobel
+from ..ops.swt import swt
 from ..ops.unpaper.blackfilter import blackfilter_wipe, blackfilter_wipe_dark
 from ..ops.unpaper.blurfilter import blurfilter_wipe, blurfilter_wipe_nonwhite
 from ..ops.unpaper.border import border_wipe, border_wipe_dark
@@ -29,12 +31,10 @@ from ..ops.unpaper.grayfilter import grayfilter_wipe, grayfilter_wipe_planes_s3
 from ..ops.unpaper.masks import masks_wipe, masks_wipe_dark
 from ..ops.unpaper.noisefilter import noisefilter_wipe, noisefilter_wipe_nonwhite
 
-# filters of the JAX package still to be ported -> the ROADMAP slice
-_NOT_PORTED = {"swt": "slice 4 (SWT)"}
-
-# filters that run on uint8 RGBA pages
+# filters that run on uint8 RGBA pages (swt also takes int32 words and
+# returns the form it was given)
 _PAGE_FILTERS = {"ace": ace, "canny": canny, "gaussian": gaussian,
-                 "sobel": sobel}
+                 "sobel": sobel, "swt": swt}
 
 # gray-plane wipe of each unpaper filter (the fallback path)
 _WIPES = {
@@ -46,7 +46,7 @@ _WIPES = {
     "unpaper_border": border_wipe,
 }
 
-_FILTERS = sorted([*_WIPES, *_PAGE_FILTERS, *_NOT_PORTED])
+_FILTERS = sorted([*_WIPES, *_PAGE_FILTERS])
 
 DOCUMENT_CLEANUP = (
     ("unpaper_blackfilter", ()),
@@ -135,8 +135,9 @@ def _default_black_threshold(group) -> bool:
 def run_pipeline(pages: torch.Tensor, spec: tuple) -> torch.Tensor:
     """Apply a normalized spec. Takes uint8 RGBA [B,H,W,4] or int32 words
     [B,H,W] (or one page) and returns the same form, on the input's
-    device. A run of unpaper filters works on words; any other filter on
-    RGBA, converted to before it and back at the end."""
+    device. A run of unpaper filters works on words, swt on either form,
+    any other filter on RGBA, converted to before it and back at the
+    end."""
     x, unb = ensure_batched(pages)
     in_words = x.dtype == torch.int32
     if not in_words and x.dtype != torch.uint8:
@@ -145,12 +146,8 @@ def run_pipeline(pages: torch.Tensor, spec: tuple) -> torch.Tensor:
     i, n = 0, len(spec)
     while i < n:
         name, kwargs = spec[i]
-        if name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"filter {name!r} is not ported to torch yet: it comes with "
-                f"ROADMAP {_NOT_PORTED[name]}")
         if name in _PAGE_FILTERS:
-            if x.dtype == torch.int32:
+            if x.dtype == torch.int32 and name != "swt":
                 x = words_to_pages(x)
             x = _PAGE_FILTERS[name](x, **dict(kwargs))
             i += 1

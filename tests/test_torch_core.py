@@ -17,7 +17,9 @@ from libpillowfight_tpu_torch.core import bitmap as tbm
 from libpillowfight_tpu_torch.core import constants as TC
 from libpillowfight_tpu_torch.ops.cuda import (ace as tace,
                                                flood_packed as tflood,
+                                               flood_sweep as tsweep,
                                                gaussian as tgauss,
+                                               label as tlabel,
                                                linecount as tlc, noise as tnoise)
 from libpillowfight_tpu_torch.ops.unpaper import common as tcommon
 
@@ -37,6 +39,8 @@ def test_import_leaves_jax_out():
             "libpillowfight_tpu_torch.ops.sobel, "
             "libpillowfight_tpu_torch.ops.canny, "
             "libpillowfight_tpu_torch.ops.ace, "
+            "libpillowfight_tpu_torch.ops.swt, "
+            "libpillowfight_tpu_torch.utils.pages, "
             "libpillowfight_tpu_torch._build; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'libpillowfight_tpu' not in sys.modules")
@@ -141,6 +145,8 @@ def test_cuda_path_never_takes_cpu_tensors():
                  lambda: tnoise.noise_cert_cuda(plane, 2, 5),
                  lambda: tnoise.noise_ball_cuda(plane, 1),
                  lambda: tgauss.gaussian_sep_cuda(plane.float(), (1.0,)),
+                 lambda: tlabel.label_links_cuda(plane, None),
+                 lambda: tsweep.flood_sweep_cuda(plane, plane),
                  lambda: tace.ace_spray_cuda(
                      plane.float()[None].expand(1, 3, 40, 33), words[0],
                      words[0], words[0].float()[None], 10.0, 1000.0)):
@@ -152,9 +158,28 @@ def test_cuda_path_never_takes_cpu_tensors():
                  lambda: tnoise.noise_cert(meta, 2, 5),
                  lambda: tnoise.noise_ball(meta, 1),
                  lambda: tgauss.gaussian_sep(meta.float(), (1.0,)),
+                 lambda: tlabel.label_links(meta, {(0, 1): meta}),
+                 lambda: tsweep.flood_sweep(meta, meta),
                  lambda: tflood.flood_packed(words.to("meta"),
                                              words.to("meta"), 40, 33)):
         with pytest.raises(ValueError, match="device meta"):
             call()
     with pytest.raises(ValueError, match="tensors on"):
         tflood.flood_packed(words, words.to("meta"), 40, 33)
+
+
+def test_synthetic_pages_equal_bench_pages():
+    """The port's page generator is byte-identical to the one the JAX
+    package's bench.py times, for the same arguments."""
+    import bench
+    from libpillowfight_tpu_torch.utils.pages import (synthetic_pages,
+                                                      text_pages)
+
+    for seed in (0, 3):
+        np.testing.assert_array_equal(synthetic_pages(2, 64, 80, seed),
+                                      bench._pages(2, 64, 80, seed))
+    np.testing.assert_array_equal(synthetic_pages(1, 300, 260),
+                                  bench._pages(1, 300, 260))
+    glyphs = text_pages(1, 600, 500)
+    assert glyphs.shape == (1, 600, 500, 4) and glyphs.dtype == np.uint8
+    assert (glyphs != synthetic_pages(1, 600, 500)).any()

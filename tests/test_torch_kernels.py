@@ -9,6 +9,9 @@ import scipy.ndimage
 import torch
 
 from libpillowfight_tpu.ops import morph as jmorph
+from libpillowfight_tpu.ops.pallas import flood_packed as jpacked
+from libpillowfight_tpu.ops.pallas.flood_kernel import (flood_reach_pallas,
+                                                        label_components_pallas)
 from libpillowfight_tpu.ops.pallas.flood_packed import (flood_reach_packed,
                                                         pack_rows, unpack_rows)
 from libpillowfight_tpu.ops.pallas.linecount_kernel import line_counts_pallas
@@ -16,8 +19,14 @@ from libpillowfight_tpu.ops.pallas.noise_kernel import (_ball_sweep,
                                                         small_cluster_mask_pallas)
 from libpillowfight_tpu_torch.ops import morph as tmorph
 from libpillowfight_tpu_torch.ops.cuda import flood_packed as tflood
+from libpillowfight_tpu_torch.ops.cuda import flood_sweep as tsweep
+from libpillowfight_tpu_torch.ops.cuda import label as tlabel
 from libpillowfight_tpu_torch.ops.cuda import linecount as tlc
 from libpillowfight_tpu_torch.ops.cuda import noise as tnoise
+
+# one thread for torch: these planes are small, and beside the other
+# workers' XLA compiles a thread pool only waits for its own threads
+torch.set_num_threads(1)
 
 
 def test_line_counts_plain_vs_pallas(rng):
@@ -161,3 +170,186 @@ def test_small_cluster_mask_dispatch(rng):
     np.testing.assert_array_equal(tmorph.small_cluster_mask(t, 1).numpy(),
                                   tnoise.small_cluster_mask_cert(t, 1).numpy())
     assert not tmorph.small_cluster_mask(t, 0).any()
+
+
+# ------------------------------------------------ labels (label_links)
+
+def _as_jax_links(links):
+    """{(dy,dx): bool [B,H,W]} numpy -> the same dict for each side."""
+    return ({d: jnp.asarray(v) for d, v in links.items()},
+            {d: torch.from_numpy(v) for d, v in links.items()})
+
+
+@pytest.mark.parametrize("connectivity", [8, 4])
+@pytest.mark.parametrize("shape,p", [((1, 48, 64), 0.4), ((2, 80, 150), 0.4)],
+                         ids=["blobs", "dense"])
+def test_label_components_plain_vs_xla(rng, shape, p, connectivity):
+    """Plain `label_components` vs the reference's XLA rounds: labels
+    bit-identical (min flat index, background H*W)."""
+    mask = rng.random(shape) < p
+    want = np.asarray(jmorph.label_components(jnp.asarray(mask),
+                                              connectivity=connectivity))
+    got = tmorph.label_components(torch.from_numpy(mask), connectivity)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy()[~mask] == shape[1] * shape[2]).all()
+    assert len(np.unique(got.numpy())) > 10
+
+
+def test_label_components_plain_vs_pallas(rng):
+    """... and vs the TPU kernel `_label_sweep_kernel` in interpret mode,
+    on a plane with a winding component that takes many sweeps."""
+    mask = rng.random((2, 80, 150)) < 0.4
+    mask[1, 2:78, 2:148] = False
+    mask[1, 4:76:4, 4:146] = True                 # a zigzag of bars
+    for i, y in enumerate(range(4, 72, 4)):
+        mask[1, y:y + 5, 145 if i % 2 == 0 else 4] = True
+    want = np.asarray(label_components_pallas(jnp.asarray(mask),
+                                              interpret=True))
+    got = tmorph.label_components(torch.from_numpy(mask)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[1, 4:76:4, 4:146] == 4 * 150 + 4).all()
+
+
+def test_label_components_links_plain_vs_xla(rng):
+    """Pairwise links: the two-rows case of the reference's own test,
+    then random valid pixels with random links (40% valid, 60% of the
+    possible links)."""
+    valid = np.ones((1, 3, 8), bool)
+    links = {d: np.zeros((1, 3, 8), bool) for d in tlabel.OFFSETS}
+    links[(0, 1)][0, 0, 0:3] = True
+    links[(0, 1)][0, 2, 4:6] = True
+    for join in (False, True):
+        if join:
+            links[(1, 0)][0, 0, 3] = links[(1, 0)][0, 1, 3] = True
+            links[(0, 1)][0, 2, 3] = True
+        jl, tl = _as_jax_links(links)
+        want = np.asarray(jmorph.label_components_links(jnp.asarray(valid), jl))
+        got = tmorph.label_components_links(torch.from_numpy(valid), tl)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert (got[0, 0, 0] == got[0, 2, 4]) == join
+    valid = rng.random((2, 60, 90)) < 0.4
+    links = {}
+    for dy, dx in tlabel.OFFSETS:
+        other = np.zeros_like(valid)
+        other[:, :60 - dy, max(0, -dx):90 - max(0, dx)] = \
+            valid[:, dy:, max(0, dx):90 + min(0, dx)]
+        links[(dy, dx)] = valid & other & (rng.random(valid.shape) < 0.6)
+    jl, tl = _as_jax_links(links)
+    want = np.asarray(jmorph.label_components_links(jnp.asarray(valid), jl))
+    got = tmorph.label_components_links(torch.from_numpy(valid), tl).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[~valid] == 60 * 90).all() and len(np.unique(got)) > 50
+
+
+def test_label_links_ignores_links_off_the_page_or_to_invalid_pixels():
+    """A link that points off the page or at an invalid pixel joins
+    nothing (the kernel applies the same rule)."""
+    valid = np.ones((1, 3, 4), bool)
+    valid[0, 1, 1] = False
+    links = {d: np.ones((1, 3, 4), bool) for d in tlabel.OFFSETS}
+    links[(1, 0)][:] = links[(1, 1)][:] = links[(1, -1)][:] = False
+    got = tmorph.label_components_links(
+        torch.from_numpy(valid),
+        {d: torch.from_numpy(v) for d, v in links.items()})[0].numpy()
+    np.testing.assert_array_equal(
+        got, [[0, 0, 0, 0], [4, 12, 6, 6], [8, 8, 8, 8]])
+    with pytest.raises(ValueError, match="keys"):
+        tmorph.label_components_links(torch.from_numpy(valid), {})
+
+
+# ------------------------------------------------ sweep flood
+
+def _flood_cases(rng):
+    """The five geometries of the reference's own sweep-flood tests."""
+    mask = rng.random((2, 96, 200)) < 0.4
+    seeds = np.zeros_like(mask)
+    seeds[:, 10, 10] = seeds[:, 50, 150] = True
+    yield "random", seeds, mask, 1
+    mask = np.zeros((1, 300, 140), bool)
+    mask[0, :, 70] = True
+    mask[0, 5, 70:100] = True
+    seeds = np.zeros_like(mask)
+    seeds[0, 5, 99] = True
+    yield "cross_band_column", seeds, mask, 1
+    mask = np.zeros((1, 96, 96), bool)
+    mask[0, 0, :] = mask[0, :, -1] = mask[0, -1, :] = True
+    mask[0, 2:, 0] = True
+    mask[0, 2, 2:94] = True
+    seeds = np.zeros_like(mask)
+    seeds[0, 0, 0] = True
+    yield "spiral", seeds, mask, 1
+    mask = np.zeros((1, 64, 256), bool)
+    mask[0, 30, :20] = mask[0, 30, -20:] = True
+    seeds = np.zeros_like(mask)
+    seeds[0, 30, 250] = True
+    yield "wrap", seeds, mask, 1
+    mask = np.zeros((1, 300, 140), bool)
+    mask[0, 10:20, 10:60] = mask[0, 32:40, 10:60] = True
+    mask[0, 150:160, 10:60] = mask[0, 34:36, 100:130] = True
+    seeds = np.zeros_like(mask)
+    seeds[0, 15, 15] = True
+    yield "leap20", seeds, mask, 20
+
+
+@pytest.mark.parametrize("case", range(5), ids=[
+    "random", "cross_band_column", "spiral", "wrap", "leap20"])
+def test_flood_sweep_plain_vs_pallas(rng, case):
+    """Plain `flood_sweep` vs the TPU kernel `_flood_sweep_kernel` in
+    interpret mode, and vs the port's packed flood: bit-identical."""
+    name, seeds, mask, leap = list(_flood_cases(rng))[case]
+    want = np.asarray(flood_reach_pallas(jnp.asarray(seeds), jnp.asarray(mask),
+                                         leap=leap, interpret=True))
+    ts, tm = torch.from_numpy(seeds), torch.from_numpy(mask)
+    got = tsweep.flood_sweep(ts, tm, leap=leap)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+    h, w = mask.shape[1:]
+    packed = tflood.unpack_rows(tflood.flood_packed(
+        tflood.pack_rows(ts & tm), tflood.pack_rows(tm), h, w, leap=leap), h)
+    assert torch.equal(got, packed)
+    assert want.any() and not want[~mask].any()
+
+
+def test_flood_sweep_arguments():
+    plane = torch.zeros((1, 8, 8), dtype=torch.bool)
+    with pytest.raises(ValueError, match="leap must be >= 1"):
+        tsweep.flood_sweep(plane, plane, leap=0)
+    with pytest.raises(ValueError, match="must be"):
+        tsweep.flood_sweep(plane, plane[0])
+    # a leap past the page is the page's size: everything in reach
+    mask = torch.zeros((1, 8, 8), dtype=torch.bool)
+    mask[0, 0, 0] = mask[0, 7, 7] = True
+    seeds = torch.zeros_like(mask)
+    seeds[0, 0, 0] = True
+    assert tsweep.flood_sweep(seeds, mask, leap=10_000)[0, 7, 7]
+    assert not tsweep.flood_sweep(seeds, mask, leap=6)[0, 7, 7]
+
+
+def test_packed_fits_equals_reference():
+    sizes = [1, 31, 32, 33, 127, 128, 129, 500, 2480, 3508, 4960, 7016]
+    for h in sizes:
+        for w in sizes:
+            assert tmorph.packed_fits(h, w) == jpacked.packed_fits(h, w), (h, w)
+    assert tmorph.packed_fits(3508, 2480) and not tmorph.packed_fits(7016, 4960)
+
+
+def test_flood_reach_dispatch(rng, monkeypatch):
+    """`flood_reach` sends a page that passes `packed_fits` to the packed
+    flood and any other to the sweep flood, with the same result."""
+    calls = []
+    real_packed, real_sweep = tmorph.flood_packed, tmorph.flood_sweep
+    monkeypatch.setattr(tmorph, "flood_packed", lambda *a, **k: (
+        calls.append("packed"), real_packed(*a, **k))[1])
+    monkeypatch.setattr(tmorph, "flood_sweep", lambda *a, **k: (
+        calls.append("sweep"), real_sweep(*a, **k))[1])
+    mask = torch.from_numpy(rng.random((1, 40, 60)) < 0.45)
+    seeds = torch.zeros_like(mask)
+    seeds[0, 20, 30] = mask[0, 20, 30] = True
+    small = tmorph.flood_reach(seeds, mask, leap=2)
+    assert calls == ["packed"]
+    monkeypatch.setattr(tmorph, "PACKED_LIMIT_BYTES", 100)
+    assert not tmorph.packed_fits(40, 60)
+    large = tmorph.flood_reach(seeds, mask, leap=2)
+    assert calls == ["packed", "sweep"]
+    assert torch.equal(small, large) and small.sum() > 1

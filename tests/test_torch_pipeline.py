@@ -12,6 +12,10 @@ from libpillowfight_tpu.core.bitmap import host_pages_to_words
 from libpillowfight_tpu.parallel import pipeline as jpipe
 import libpillowfight_tpu_torch as pt
 
+# one thread for torch: these planes are small, and beside the other
+# workers' XLA compiles a thread pool only waits for its own threads
+torch.set_num_threads(1)
+
 
 def _inputs(name, page):
     if name == "tiny_batch":
@@ -113,9 +117,41 @@ def test_compile_pipeline_and_errors(page):
     np.testing.assert_array_equal(fn(torch.from_numpy(page)).numpy(), want)
     with pytest.raises(ValueError, match="unknown filter"):
         pt.normalize_spec(["unpaper_nope"])
+    # every filter name of the JAX package is taken, and none raises
+    # NotImplementedError any more
+    assert set(jpipe._FILTERS) == set(pt.parallel.pipeline._FILTERS)
     spec = pt.normalize_spec(["unpaper_border", "swt"])
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        pt.run_pipeline(torch.from_numpy(page), spec)
+    out = pt.run_pipeline(torch.from_numpy(page), spec)
+    assert out.shape == page.shape and out.dtype == torch.uint8
     with pytest.raises(TypeError, match="uint8 RGBA or int32"):
         pt.run_pipeline(torch.from_numpy(page).float(), pt.normalize_spec(
             ["unpaper_border"]))
+
+
+def test_run_pipeline_swt_equals_op(page):
+    """`swt` in a spec equals the op, for RGBA and for words (which it
+    takes as they come), and passes its arguments on."""
+    tp = torch.from_numpy(page)
+    words = tp.view(torch.int32).squeeze(-1)
+    spec = pt.normalize_spec([("swt", {})])
+    want = pt.swt(tp)
+    assert torch.equal(pt.run_pipeline(tp, spec), want)
+    got_w = pt.run_pipeline(words, spec)
+    assert got_w.dtype == torch.int32
+    assert torch.equal(got_w.unsqueeze(-1).view(torch.uint8), want)
+    gray = pt.normalize_spec([("swt", {"output_type": 1})])
+    assert torch.equal(pt.run_pipeline(tp, gray), pt.swt(tp, 1))
+
+
+@pytest.mark.parametrize("form", ["rgba", "words"])
+def test_run_pipeline_swt_then_cleanup(page, form):
+    """swt followed by the cleanup chain runs on either form and equals
+    the two steps taken one by one."""
+    tp = torch.from_numpy(np.stack([page, page]))
+    if form == "words":
+        tp = tp.view(torch.int32).squeeze(-1)
+    spec = pt.normalize_spec([("swt", {}), *pt.DOCUMENT_CLEANUP])
+    out = pt.run_pipeline(tp, spec)
+    assert out.shape == tp.shape and out.dtype == tp.dtype
+    step = pt.run_pipeline(pt.swt(tp), pt.normalize_spec(pt.DOCUMENT_CLEANUP))
+    assert torch.equal(out, step)
