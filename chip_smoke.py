@@ -12,7 +12,11 @@
    rounding (rsqrtf). Beside each time it prints the kernel's bound (the
    least time the card could take: compulsory bytes over the memory rate,
    or operations over the f32 rate) and, where one PyTorch call computes
-   the same function, that call's time;
+   the same function, that call's time. Both floods are also held to
+   their plain versions on the shared edge cases of
+   `utils.pages.flood_cases` (heights around a 32-row band, widths around
+   a strip, leaps 1 to 33, snakes, a solid ring, no seeds) and on random
+   planes up to leap 70, with their sweeps and rounds per flood;
 5. drives six paths through the port's run_pipeline on the card, each
    with every launch count set to 0 just before and read just after, and
    checks that each launched its kernels:
@@ -36,7 +40,9 @@
 6. times swt, the cleanup chain, EDGE_STACK and ace (100 samples) on
    A4 x 16 and the cleanup chain on A4 600 dpi x 4 (two distinct dirty
    batches, median of CUDA-event times), prints MP/s, the stages of swt
-   and the device's idle share during swt;
+   and the device's idle share during swt; the packed flood alone at
+   A4 x 16 and the sweep flood alone at A4 600 dpi x 4, the shapes those
+   paths give them;
 7. prints the kernels line (JSON), then the result line (JSON), last.
 
 Any failed phase raises, and the exit code is then non-zero.
@@ -233,6 +239,82 @@ def swt_stages(words: torch.Tensor, max_len: int = 128) -> dict:
             "max_letters": max_letters, "out": out}
 
 
+def packed_flood(seeds, mask, leap: int):
+    """The packed route of `flood_reach` on bool planes: pack, flood,
+    unpack."""
+    from libpillowfight_tpu_torch.ops.cuda import flood_packed as fp
+
+    h, w = mask.shape[1:]
+    return fp.unpack_rows_cuda(fp.flood_packed_cuda(
+        fp.pack_rows_cuda(seeds), fp.pack_rows_cuda(mask), h, w, leap=leap),
+        h)
+
+
+def time_sweep_flood(seeds, mask, leap: int, what: str) -> float:
+    """The sweep flood's time, its launches and sweeps, the time a sweep."""
+    from libpillowfight_tpu_torch.ops.cuda import flood_sweep as fs
+
+    before = fs.launches
+    fs.flood_sweep_cuda(seeds, mask, leap=leap)
+    n = fs.launches - before
+    ms = cuda_ms(lambda: fs.flood_sweep_cuda(seeds, mask, leap=leap))
+    log(f"flood_sweep, {what}, leap {leap}: {ms:.4f} ms a flood in {n} "
+        f"launches = {2 * n} sweeps, {ms / (2 * n):.4f} ms a sweep")
+    return ms
+
+
+def time_packed_flood(seeds_w, mask_w, h: int, w: int, leap: int,
+                      what: str) -> float:
+    """The packed flood's time (packed planes in and out), its rounds,
+    the time a round."""
+    from libpillowfight_tpu_torch.ops.cuda import flood_packed as fp
+
+    fp.flood_packed_cuda(seeds_w, mask_w, h, w, leap=leap)
+    n = fp.rounds_of_last_flood()
+    ms = cuda_ms(lambda: fp.flood_packed_cuda(seeds_w, mask_w, h, w,
+                                              leap=leap))
+    log(f"flood_round, {what}, leap {leap}: {ms:.4f} ms a flood in one "
+        f"launch of {n} rounds, {ms / n:.4f} ms a round")
+    return ms
+
+
+def check_flood_cases(dev) -> None:
+    """Both floods against their plain versions on the shared edge cases,
+    the packed flood also under a cap of 2 and of 3 rounds."""
+    from libpillowfight_tpu_torch.ops.cuda import flood_packed as fp
+    from libpillowfight_tpu_torch.ops.cuda import flood_sweep as fs
+    from libpillowfight_tpu_torch.utils.pages import flood_cases
+
+    notes = []
+    for name, seeds, mask, leap in flood_cases():
+        seeds, mask = torch.from_numpy(seeds).to(dev), torch.from_numpy(
+            mask).to(dev)
+        h, w = mask.shape[1:]
+        want = fs.flood_sweep_plain(seeds, mask, leap=leap)
+        before = fs.launches
+        if not torch.equal(fs.flood_sweep_cuda(seeds, mask, leap=leap), want):
+            raise AssertionError(f"flood_sweep differs from plain on the "
+                                 f"edge case {name}")
+        n_launches = fs.launches - before
+        seeds_w, mask_w = fp.pack_rows_cuda(seeds), fp.pack_rows_cuda(mask)
+        for cap in (None, 2, 3):
+            got = fp.flood_packed_cuda(seeds_w, mask_w, h, w, leap=leap,
+                                       max_iters=cap)
+            if not torch.equal(got, fp.flood_packed_plain(
+                    seeds_w, mask_w, h, w, leap=leap, max_iters=cap)):
+                raise AssertionError(f"flood_round differs from plain on "
+                                     f"the edge case {name}, max_iters={cap}")
+            if cap is None:
+                rounds = fp.rounds_of_last_flood()
+                if not torch.equal(fp.unpack_rows_cuda(got, h), want):
+                    raise AssertionError(f"the two floods differ on the "
+                                         f"edge case {name}")
+        notes.append(f"{name} {2 * n_launches}/{rounds}")
+    log(f"flood_sweep and flood_round on {len(notes)} shared edge cases: "
+        f"bit-identical to plain and to each other (sweeps/rounds: "
+        + ", ".join(notes) + ")")
+
+
 def check_kernels(words2, swt2: dict, words600) -> dict:
     """Each kernel vs its plain version: on one A4 x 2 batch's planes,
     on the planes SWT builds on an A4 x 2 batch with glyphs (`swt2`), and
@@ -356,6 +438,11 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
     if max_abs_err(got, want) != 0.0:
         raise AssertionError("flood_round at leap 1 differs from plain")
     log("kernel flood_round (leap 1, noisefilter inputs): bit-identical")
+    time_packed_flood(seeds_w, dark_w, h, w, 20,
+                      f"A4 x {b}, blackfilter inputs")
+    time_packed_flood(cert_w, nonwhite_w, h, w, 1,
+                      f"A4 x {b}, noisefilter inputs")
+    check_flood_cases(dark.device)
     # the other board radii the sweeps are built for, on a 512-row strip
     part = nonwhite[:, :512].contiguous()
     for j in range(1, noise.MAX_J + 1):
@@ -401,53 +488,51 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
     del rvalid, rlinks
 
     # the sweep flood against the packed flood, and at leap 1
-    def packed600():
-        return fp.unpack_rows_cuda(fp.flood_packed_cuda(
-            fp.pack_rows_cuda(seeds600), fp.pack_rows_cuda(dark600), h6, w6,
-            leap=20), h6)
-
     sweep = fs.flood_sweep_cuda(seeds600, dark600, leap=20)
-    if not torch.equal(sweep, packed600()):
+    if not torch.equal(sweep, packed_flood(seeds600, dark600, 20)):
         raise AssertionError("flood_sweep differs from the packed flood at "
                              "600 dpi, leap 20")
-    before = fs.launches
-    fs.flood_sweep_cuda(seeds600, dark600, leap=20)
+    time_sweep_flood(seeds600, dark600, 20,
+                     f"A4 600 dpi x {b}, blackfilter inputs")
+    time_packed_flood(fp.pack_rows_cuda(seeds600), fp.pack_rows_cuda(dark600),
+                      h6, w6, 20, f"A4 600 dpi x {b}, blackfilter inputs")
     log(f"flood at A4 600 dpi x {b}, leap 20 (blackfilter inputs, "
         f"{int(sweep.sum())} pixels reached): sweep flood "
-        f"{out['flood_sweep']['ms']:.4f} ms in {fs.launches - before} "
-        f"sweeps, packed flood (pack and unpack included) "
-        f"{cuda_ms(packed600):.4f} ms, bit-identical")
+        f"{out['flood_sweep']['ms']:.4f} ms, packed flood (pack and unpack "
+        f"included) "
+        f"{cuda_ms(lambda: packed_flood(seeds600, dark600, 20)):.4f} ms, "
+        f"bit-identical")
     del sweep
     strong, weak = swt2["strong"], swt2["weak"]
     got = fs.flood_sweep_cuda(strong, weak, leap=1)
-    before = fs.launches
-    fs.flood_sweep_cuda(strong, weak, leap=1)
-    n_sweeps = fs.launches - before
-    packed = fp.unpack_rows_cuda(fp.flood_packed_cuda(
-        fp.pack_rows_cuda(strong), fp.pack_rows_cuda(weak), h, w, leap=1), h)
     if not (torch.equal(got, fs.flood_sweep_plain(strong, weak, leap=1))
-            and torch.equal(got, packed)):
+            and torch.equal(got, packed_flood(strong, weak, 1))):
         raise AssertionError("flood_sweep at leap 1 (canny planes) differs "
                              "from plain or from the packed flood")
-    ms = cuda_ms(lambda: fs.flood_sweep_cuda(strong, weak, leap=1))
     log(f"kernel flood_sweep (leap 1, canny strong/weak A4 x {b}): "
-        f"bit-identical to plain and to the packed flood, {ms:.4f} ms in "
-        f"{n_sweeps} sweeps")
+        f"bit-identical to plain and to the packed flood")
+    time_sweep_flood(strong, weak, 1, f"A4 x {b}, canny strong/weak")
+    time_packed_flood(fp.pack_rows_cuda(strong), fp.pack_rows_cuda(weak), h,
+                      w, 1, f"A4 x {b}, canny strong/weak")
     # random planes, where every row and column distance up to the leap
-    # occurs; leap 70 takes the 1024-thread blocks
+    # occurs; leap 70 takes 512-thread blocks, leap 300 the 1024-thread
+    # kernel
     gen = torch.Generator().manual_seed(0)
     for shape, density, leaps in (((2, 1000, 700), 0.45, (1, 2, 3)),
-                                  ((1, 700, 2100), 0.05, (3, 5, 20, 70))):
+                                  ((1, 700, 2100), 0.05, (3, 5, 20, 70)),
+                                  ((1, 700, 2100), 1e-5, (300,))):
         plane = (torch.rand(shape, generator=gen) < density).to(dark.device)
-        some = (torch.rand(shape, generator=gen) < 5e-4).to(dark.device) & plane
+        some = (torch.rand(shape, generator=gen)
+                < (5e-4 if density > 1e-3 else 0.2)).to(dark.device) & plane
         for leap in leaps:
-            if not torch.equal(fs.flood_sweep_cuda(some, plane, leap=leap),
-                               fs.flood_sweep_plain(some, plane, leap=leap)):
-                raise AssertionError(f"flood_sweep on a random {shape} "
-                                     f"plane at leap {leap} differs from "
-                                     f"plain")
-    log("kernel flood_sweep on random planes (leap 1, 2, 3 at 45%; 3, 5, "
-        "20, 70 at 5%): bit-identical")
+            want = fs.flood_sweep_plain(some, plane, leap=leap)
+            if not (torch.equal(fs.flood_sweep_cuda(some, plane, leap=leap),
+                                want)
+                    and torch.equal(packed_flood(some, plane, leap), want)):
+                raise AssertionError(f"a flood on a random {shape} plane at "
+                                     f"leap {leap} differs from plain")
+    log("kernels flood_sweep and flood_round on random planes (leap 1, 2, 3 "
+        "at 45%; 3, 5, 20, 70 at 5%; 300 at 0.001%): bit-identical")
     return out
 
 
@@ -694,6 +779,8 @@ def main() -> int:
         return 2
     import libpillowfight_tpu_torch as pt
     from libpillowfight_tpu_torch import _build
+    from libpillowfight_tpu_torch.core.bitmap import words_to_gray
+    from libpillowfight_tpu_torch.ops.cuda import flood_packed as fp
     from libpillowfight_tpu_torch.utils.pages import (synthetic_pages,
                                                       text_pages)
 
@@ -782,6 +869,11 @@ def main() -> int:
     text16 = batches[0]
     batches = [words_on(synthetic_pages(TIME_BATCH, A4_H, A4_W, seed=s), dev)
                for s in (0, 1)]
+    flood16 = blackfilter_flood_inputs(words_to_gray(batches[0]))
+    time_packed_flood(fp.pack_rows_cuda(flood16[0]),
+                      fp.pack_rows_cuda(flood16[1]), A4_H, A4_W, 20,
+                      f"A4 x {TIME_BATCH}, blackfilter inputs")
+    del flood16
     ms = time_path(lambda x: pt.run_pipeline(x, cleanup), batches,
                    "chain", card)
     log(f"unpaper_cleanup_pipeline_throughput "
@@ -794,6 +886,8 @@ def main() -> int:
                                         seed=s), dev) for s in (0, 1)]
     time_path(lambda x: pt.run_pipeline(x, cleanup), batches,
               "chain at 600 dpi", card)
+    time_sweep_flood(*blackfilter_flood_inputs(words_to_gray(batches[0])), 20,
+                     f"A4 600 dpi x {TIME_BATCH_600}, blackfilter inputs")
     del batches
     # last: reading the profiler's trace leaves the card idle for seconds
     idle_share(lambda x: pt.run_pipeline(x, swt_spec), text16,

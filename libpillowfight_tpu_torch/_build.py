@@ -38,13 +38,14 @@ _SIGNATURES = {
     "pft_line_counts": [P, P, P, I, I, I, P],
     "pft_pack_rows": [P, P, I, I, I, P],
     "pft_unpack_rows": [P, P, I, I, I, P],
-    "pft_flood_round": [P, P, P, P, P, I, I, I, I, P],
+    "pft_flood_packed_smem": [I, I],  # returns bytes, not an error code
+    "pft_flood_packed": [P, P, P, P, P, I, I, I, I, I, P],
     "pft_noise_cert": [P, P, P, I, I, I, I, I, P],
     "pft_noise_ball": [P, P, I, I, I, I, P],
     "pft_gaussian_sep": [P, P, FP, I, I, I, I, P],
     "pft_ace_spray": [P, P, P, P, P, P, I, I, I, I, F, F, P],
     "pft_label_links": [P, P, P, I, I, I, P],
-    "pft_flood_sweep": [P, P, P, I, I, I, I, I, I, P],
+    "pft_flood_sweep": [P, P, P, I, I, I, I, I, P],
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-// Bit-packed exact flood: pack/unpack and one flood round.
+// Bit-packed exact flood: pack/unpack and the whole flood in one launch.
 //
 // Replaces libpillowfight_tpu/ops/pallas/flood_packed.py:
 //   `_pack_kernel` / `pack_rows`, `_unpack_kernel` / `unpack_rows`, and
@@ -7,35 +7,49 @@
 //
 // Layout as in the reference: bit k of word (q, x) is pixel (32q + k, x),
 // so a page is a [ceil(H/32), W] uint32 plane and one bitwise op moves 32
-// rows. A round keeps the reference's three phases: segmented OR along W,
+// rows. A round computes the reference's function: segmented OR along W,
 // segmented OR along H across words, then a Chebyshev-ball dilation of
-// radius `leap` gated by the mask, with a per-page count of changed words.
-// The host repeats rounds until a round changes nothing.
+// radius `leap` gated by the mask, and whether the dilation added a word.
+// Rounds repeat as the reference repeats them: two, then more while the
+// last one added something and fewer than `max_iters` have run.
 //
-// What differs from the TPU kernels, and why:
-// - The TPU holds a whole page in VMEM and runs doubling chains over it
-//   (log W lane rolls). Here nothing bounds the page size: each phase
-//   streams through device memory. The W-axis seg-OR is one block per
-//   packed row: each thread folds a chunk of words into the affine map
-//   c -> a | (m & c), a block scan of those maps gives each chunk its
-//   carry, and a forward then a backward pass write the result. The
-//   H-axis seg-OR is one thread per column walking the words down then
-//   up, with an in-word Kogge-Stone fill (5 steps) and a 1-bit carry.
-// - The dilation is a horizontal pass (OR of 2*leap+1 words) into a
-//   scratch plane, then a vertical pass of word shifts gated by the mask.
-//
-// Bound on the H100: a round reads and writes a few packed planes
-// (0.125 B/px each); at A4 a plane is ~1 MB per page and sits in the
-// 50 MB L2 for a batch of 16. The column walk of the H-axis pass is
-// latency-bound (Hq dependent steps); the dilation is ~2*leap word ops
-// per word. The host reads one int per round to test convergence.
+// What bounds it on the H100: by bytes almost nothing (a round passes a
+// few times over packed planes of 0.125 B/px that sit in the 50 MB L2),
+// so launches, host reads and chains of dependent loads are the cost. The
+// design spends one launch a flood and reads nothing back:
+// - One persistent cooperative kernel runs all rounds; the blocks meet at
+//   `grid.sync()` between phases and read a changed flag on the device.
+//   The phases stay global, two a round: a solid scan border spans the
+//   whole width and height of a page, so tiles taken to their own fixed
+//   points would need a round for every tile the flood crosses, while a
+//   global scan along W and one along H cross the page in one round.
+// - Row phase, a block per packed row, the row staged in shared memory:
+//   it finishes the round before (OR over x - leap .. x + leap by
+//   doubling, gate by the mask, note a change, store the state) and
+//   starts the next (the segmented OR along W: each thread folds a chunk
+//   of words into the map c -> a | (m & c), a block scan of the maps in
+//   each direction gives every chunk its carries). The dilation is
+//   separable, so taking its H half first (below) changes nothing.
+// - Column phase, a block per strip of 32 columns, the strip's Hq words
+//   of mask and state staged in shared memory by coalesced loads: the
+//   segmented OR along H (a Kogge-Stone fill inside each word, a one-bit
+//   carry scanned over eight segments of the column, one warp each), then
+//   the H half of the dilation from the nearest set row above and below
+//   each word, whatever the leap.
+// The grid is what is co-resident (occupancy x SMs) or the work, if less;
+// rows and strips are strided over it, so any batch runs.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int COLS = 32;  // columns of a strip in the column phase
 constexpr unsigned FULL = 0xffffffffu;
 
 __global__ void pack_rows_kernel(const uint8_t* __restrict__ plane,
@@ -80,8 +94,9 @@ __device__ __forceinline__ Op then(Op first, Op second) {
 
 // Carry into this thread's chunk: the composition of every chunk before
 // it in processing order (threads ascending, or descending if reverse),
-// applied to 0.
-__device__ uint32_t carry_in(Op acc, bool reverse, Op* warp_tot) {
+// applied to 0. The caller's barrier follows the write of warp_tot.
+__device__ __forceinline__ Op scan_exclusive(Op acc, bool reverse,
+                                             Op* warp_tot) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   Op inc = acc;
 #pragma unroll
@@ -100,51 +115,19 @@ __device__ uint32_t carry_in(Op acc, bool reverse, Op* warp_tot) {
                   : __shfl_up_sync(FULL, inc.m, 1);
   if (lane == (reverse ? 31 : 0)) exc = identity();
   if (lane == (reverse ? 0 : 31)) warp_tot[warp] = inc;
-  __syncthreads();
+  return exc;
+}
+
+__device__ __forceinline__ uint32_t carry_of(Op exc, bool reverse,
+                                             const Op* warp_tot) {
+  const int warp = threadIdx.x >> 5;
   Op pre = identity();
   if (reverse) {
-    for (int w = THREADS / 32 - 1; w > warp; --w) pre = then(pre, warp_tot[w]);
+    for (int w = WARPS - 1; w > warp; --w) pre = then(pre, warp_tot[w]);
   } else {
     for (int w = 0; w < warp; ++w) pre = then(pre, warp_tot[w]);
   }
   return then(pre, exc).a;
-}
-
-// Segmented OR along W of one packed row: out = m & (any r in the run).
-__global__ void lanes_kernel(const uint32_t* __restrict__ mask,
-                             const uint32_t* __restrict__ r,
-                             uint32_t* __restrict__ out, int W, int Hq) {
-  const size_t row = ((size_t)blockIdx.y * Hq + blockIdx.x) * W;
-  const uint32_t* m = mask + row;
-  const uint32_t* rr = r + row;
-  uint32_t* o = out + row;
-  const int chunk = (W + THREADS - 1) / THREADS;
-  const int lo = min(W, (int)threadIdx.x * chunk), hi = min(W, lo + chunk);
-  __shared__ Op warp_tot[THREADS / 32];
-
-  // forward: f[x] = m[x] & (r[x] | f[x-1])
-  Op acc = identity();
-  for (int x = lo; x < hi; ++x) {
-    const uint32_t mm = m[x];
-    acc = then(acc, Op{mm & rr[x], mm});
-  }
-  uint32_t c = carry_in(acc, false, warp_tot);
-  for (int x = lo; x < hi; ++x) {
-    c = m[x] & (rr[x] | c);
-    o[x] = c;
-  }
-  __syncthreads();
-  // backward over f: g[x] = m[x] & (f[x] | g[x+1])
-  acc = identity();
-  for (int x = hi - 1; x >= lo; --x) {
-    const uint32_t mm = m[x];
-    acc = then(acc, Op{mm & o[x], mm});
-  }
-  c = carry_in(acc, true, warp_tot);
-  for (int x = hi - 1; x >= lo; --x) {
-    c = m[x] & (o[x] | c);
-    o[x] = c;
-  }
 }
 
 // Occluded fills inside one word (Kogge-Stone): spread f through runs of p.
@@ -172,88 +155,211 @@ __device__ __forceinline__ uint32_t fill_down(uint32_t f, uint32_t p) {
   return f | (p & (f >> 16));
 }
 
-// Segmented OR along H, in place: one thread per column, down then up.
-__global__ void rows_kernel(const uint32_t* __restrict__ mask, uint32_t* r,
-                            int W, int Hq) {
-  const int b = blockIdx.y;
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= W) return;
-  const size_t base = (size_t)b * Hq * W + x;
-  uint32_t carry = 0;
-  for (int q = 0; q < Hq; ++q) {
-    const size_t i = base + (size_t)q * W;
-    const uint32_t m = mask[i];
-    const uint32_t f = fill_up((r[i] | carry) & m, m);
-    r[i] = f;
-    carry = f >> 31;
+// Rows within `leap` of a set row, inside the word.
+__device__ __forceinline__ uint32_t smear32(uint32_t x, int leap) {
+  if (leap >= 31) return x ? FULL : 0u;
+  for (int c = 0; c < leap;) {
+    const int s = min(c + 1, leap - c);
+    x |= (x << s) | (x >> s);
+    c += s;
   }
-  carry = 0;
-  for (int q = Hq - 1; q >= 0; --q) {
-    const size_t i = base + (size_t)q * W;
-    const uint32_t m = mask[i];
-    const uint32_t f = fill_down((r[i] | (carry << 31)) & m, m);
-    r[i] = f;
-    carry = f & 1u;
-  }
+  return x;
 }
 
-// h = OR of t over words x-leap .. x+leap of the same packed row.
-__global__ void hdilate_kernel(const uint32_t* __restrict__ t,
-                               uint32_t* __restrict__ h, int W, int Hq,
-                               int leap) {
-  const int b = blockIdx.y;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)Hq * W) return;
-  const int x = (int)(i % W);
-  const uint32_t* src = t + (size_t)b * Hq * W + (i - x);
-  uint32_t v = 0;
-  const int x1 = min(W - 1, x + leap);
-  for (int xx = max(0, x - leap); xx <= x1; ++xx) v |= src[xx];
-  h[(size_t)b * Hq * W + i] = v;
-}
-
-__device__ __forceinline__ uint32_t word_at(const uint32_t* col, int q, int Hq,
-                                            int W) {
-  return (q >= 0 && q < Hq) ? col[(size_t)q * W] : 0u;
-}
-
-// r = (vertical dilation of h by leap rows & mask) | t; changed[b] += the
-// number of words where r != t.
-__global__ void vdilate_gate_kernel(const uint32_t* __restrict__ mask,
-                                    const uint32_t* __restrict__ t,
-                                    const uint32_t* __restrict__ h,
-                                    uint32_t* __restrict__ r,
-                                    int* __restrict__ changed, int W, int Hq,
-                                    int leap) {
-  const int b = blockIdx.y;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  int ch = 0;
-  if (i < (size_t)Hq * W) {
-    const int q = (int)(i / W), x = (int)(i % W);
-    const uint32_t* col = h + (size_t)b * Hq * W + x;
-    uint32_t v = col[(size_t)q * W];
-    for (int d = 1; d <= leap; ++d) {
-      const int qd = d >> 5, s = d & 31;
-      uint32_t dn, up;  // bit-row y takes row y - d (dn) and y + d (up)
-      if (s) {
-        dn = (word_at(col, q - qd, Hq, W) << s) |
-             (word_at(col, q - qd - 1, Hq, W) >> (32 - s));
-        up = (word_at(col, q + qd, Hq, W) >> s) |
-             (word_at(col, q + qd + 1, Hq, W) << (32 - s));
-      } else {
-        dn = word_at(col, q - qd, Hq, W);
-        up = word_at(col, q + qd, Hq, W);
+// Row phase of round `round`, a block per packed row. For round > 0 it
+// ends the round before: r = (OR of v over x - leap .. x + leap & mask)
+// | t, and a flag if any word of r differs from t. Then, on r, the
+// segmented OR along W of this round, into t. smem: 3 * W words.
+__device__ void row_phase(const uint32_t* __restrict__ mask, uint32_t* r,
+                          uint32_t* t, const uint32_t* v, int* flag, int rows,
+                          int W, int leap, int round, uint32_t* smem) {
+  __shared__ Op warp_tot[2][WARPS];
+  const int tid = threadIdx.x;
+  uint32_t* a = smem;
+  uint32_t* b = smem + W;
+  uint32_t* m = smem + 2 * (size_t)W;
+  // odd, so that the threads' chunks start in different banks
+  const int chunk = ((W + THREADS - 1) / THREADS) | 1;
+  const int lo = min(W, tid * chunk), hi = min(W, lo + chunk);
+  int changed = 0;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const size_t base = (size_t)row * W;
+    uint32_t* state = b;  // r of this row; `out` is the other buffer
+    uint32_t* out = a;
+    if (round > 0) {
+      for (int x = tid; x < W; x += THREADS) a[x] = __ldcg(v + base + x);
+      __syncthreads();
+      uint32_t* src = a;
+      uint32_t* dst = b;
+      for (int c = 0; c < leap;) {
+        const int s = min(c + 1, leap - c);
+        for (int x = tid; x < W; x += THREADS)
+          dst[x] = src[x] | (x >= s ? src[x - s] : 0u) |
+                   (x + s < W ? src[x + s] : 0u);
+        __syncthreads();
+        uint32_t* swap = src;
+        src = dst;
+        dst = swap;
+        c += s;
       }
-      v |= dn | up;
+      state = dst;
+      out = src;
+      for (int x = tid; x < W; x += THREADS) {
+        const uint32_t mm = mask[base + x];
+        const uint32_t tv = __ldcg(t + base + x);
+        const uint32_t r2 = (src[x] & mm) | tv;
+        changed |= r2 != tv;
+        r[base + x] = r2;
+        m[x] = mm;
+        state[x] = r2;
+      }
+    } else {
+      for (int x = tid; x < W; x += THREADS) {
+        const uint32_t mm = mask[base + x];
+        m[x] = mm;
+        state[x] = r[base + x] & mm;
+      }
     }
-    const size_t idx = (size_t)b * Hq * W + i;
-    const uint32_t tv = t[idx];
-    const uint32_t r2 = (v & mask[idx]) | tv;
-    r[idx] = r2;
-    ch = r2 != tv;
+    __syncthreads();
+    // out[x] = m[x] & (any state in the run of m): a scan from each side
+    Op fwd = identity(), bwd = identity();
+    for (int x = lo; x < hi; ++x) fwd = then(fwd, Op{m[x] & state[x], m[x]});
+    for (int x = hi - 1; x >= lo; --x)
+      bwd = then(bwd, Op{m[x] & state[x], m[x]});
+    const Op ef = scan_exclusive(fwd, false, warp_tot[0]);
+    const Op eb = scan_exclusive(bwd, true, warp_tot[1]);
+    __syncthreads();
+    uint32_t c = carry_of(ef, false, warp_tot[0]);
+    for (int x = lo; x < hi; ++x) {
+      c = m[x] & (state[x] | c);
+      out[x] = c;
+    }
+    c = carry_of(eb, true, warp_tot[1]);
+    for (int x = hi - 1; x >= lo; --x) {
+      c = m[x] & (state[x] | c);
+      out[x] |= c;
+    }
+    __syncthreads();
+    for (int x = tid; x < W; x += THREADS) t[base + x] = out[x];
+    __syncthreads();  // the buffers are free for the next row
   }
-  const unsigned bal = __ballot_sync(FULL, ch);
-  if ((threadIdx.x & 31) == 0 && bal) atomicAdd(&changed[b], __popc(bal));
+  if (__syncthreads_or(changed) && tid == 0) atomicOr(flag, 1);
+}
+
+// Column phase, a block per strip of COLS columns of one page: t = the
+// segmented OR of t along H, v = t dilated by `leap` rows (both ways).
+// smem: 3 * Hq * COLS words.
+__device__ void column_phase(const uint32_t* __restrict__ mask, uint32_t* t,
+                             uint32_t* v, int B, int Hq, int W, int leap,
+                             uint32_t* smem) {
+  __shared__ uint32_t seg[2][WARPS][COLS];  // [down, up][segment]: g | p << 1
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* m = smem;
+  uint32_t* in = smem + (size_t)Hq * COLS;
+  uint32_t* out = smem + 2 * (size_t)Hq * COLS;
+  const int per_page = (W + COLS - 1) / COLS;
+  const int len = (Hq + WARPS - 1) / WARPS;  // words of a segment
+  const int q0 = min(Hq, warp * len), q1 = min(Hq, q0 + len);
+  for (int strip = blockIdx.x; strip < B * per_page; strip += gridDim.x) {
+    const int x = (strip % per_page) * COLS + lane;
+    const bool live = x < W;
+    const size_t base = (size_t)(strip / per_page) * Hq * W + (live ? x : 0);
+    for (int q = warp; q < Hq; q += WARPS) {
+      m[q * COLS + lane] = live ? mask[base + (size_t)q * W] : 0u;
+      in[q * COLS + lane] = live ? __ldcg(t + base + (size_t)q * W) : 0u;
+    }
+    __syncthreads();
+    // each segment alone: does it hand a carry on (g), does it pass one
+    // through (p: every word all mask)
+    uint32_t down = 0, up = 0, pass = 1;
+    for (int q = q0; q < q1; ++q) {
+      const uint32_t mm = m[q * COLS + lane];
+      down = fill_up((in[q * COLS + lane] | down) & mm, mm) >> 31;
+      pass &= mm == FULL;
+    }
+    for (int q = q1 - 1; q >= q0; --q) {
+      const uint32_t mm = m[q * COLS + lane];
+      up = fill_down((in[q * COLS + lane] | (up << 31)) & mm, mm) & 1u;
+    }
+    seg[0][warp][lane] = down | (pass << 1);
+    seg[1][warp][lane] = up | (pass << 1);
+    __syncthreads();
+    down = up = 0;
+    for (int w = 0; w < warp; ++w) {
+      const uint32_t gp = seg[0][w][lane];
+      down = (gp & 1u) | ((gp >> 1) & down);
+    }
+    for (int w = WARPS - 1; w > warp; --w) {
+      const uint32_t gp = seg[1][w][lane];
+      up = (gp & 1u) | ((gp >> 1) & up);
+    }
+    for (int q = q0; q < q1; ++q) {
+      const uint32_t mm = m[q * COLS + lane];
+      const uint32_t f = fill_up((in[q * COLS + lane] | down) & mm, mm);
+      out[q * COLS + lane] = f;
+      down = f >> 31;
+    }
+    for (int q = q1 - 1; q >= q0; --q) {
+      const uint32_t mm = m[q * COLS + lane];
+      const uint32_t f =
+          fill_down((in[q * COLS + lane] | (up << 31)) & mm, mm);
+      out[q * COLS + lane] |= f;
+      up = f & 1u;
+    }
+    __syncthreads();
+    // dilation along H: inside the word, and from the nearest set row in
+    // the words above and below, as far as `leap` reaches
+    for (int q = warp; q < Hq; q += WARPS) {
+      const uint32_t tv = out[q * COLS + lane];
+      uint32_t d = smear32(tv, leap);
+      for (int j = 1; q - j >= 0 && 32 * (j - 1) < leap; ++j) {
+        const uint32_t w = out[(q - j) * COLS + lane];
+        if (w) {
+          const int n = leap - (32 * (j - 1) + __clz(w) + 1) + 1;
+          if (n > 0) d |= n >= 32 ? FULL : (1u << n) - 1u;
+          break;
+        }
+      }
+      for (int j = 1; q + j < Hq && 32 * (j - 1) < leap; ++j) {
+        const uint32_t w = out[(q + j) * COLS + lane];
+        if (w) {
+          const int n = leap - (32 * (j - 1) + __ffs(w)) + 1;
+          if (n > 0) d |= n >= 32 ? FULL : ~(FULL >> n);
+          break;
+        }
+      }
+      if (live) {
+        t[base + (size_t)q * W] = tv;
+        v[base + (size_t)q * W] = d;
+      }
+    }
+    __syncthreads();  // the planes are free for the next strip
+  }
+}
+
+// The whole flood. r: the seeds (within the mask) on entry, the reach on
+// exit. t, v: scratch planes. info: int32 [4], zero on entry; [0..2] are
+// the rounds' changed flags in turn, [3] gets the number of rounds run.
+__global__ void __launch_bounds__(THREADS)
+    flood_kernel(const uint32_t* __restrict__ mask, uint32_t* r, uint32_t* t,
+                 uint32_t* v, int* info, int B, int Hq, int W, int leap,
+                 int max_iters) {
+  extern __shared__ uint32_t smem[];
+  cg::grid_group grid = cg::this_grid();
+  int round = 0;
+  for (;; ++round) {
+    row_phase(mask, r, t, v, info + round % 3, B * Hq, W, leap, round, smem);
+    grid.sync();
+    // round `round` is complete in r: two rounds always, then as long as
+    // the last one changed a word and the cap allows
+    if (round >= 2 && (round >= max_iters ||
+                       *(volatile int*)(info + round % 3) == 0))
+      break;
+    if (blockIdx.x == 0 && threadIdx.x == 0) info[(round + 1) % 3] = 0;
+    column_phase(mask, t, v, B, Hq, W, leap, smem);
+    grid.sync();
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) info[3] = round;
 }
 
 inline dim3 word_grid(int Hq, int W, int B) {
@@ -284,23 +390,53 @@ extern "C" int pft_unpack_rows(const void* words, void* plane, int B, int H,
   return (int)cudaGetLastError();
 }
 
-// One flood round on packed [B,Hq,W] planes. r: state, updated in place;
-// t, h: scratch planes; changed: int32 [B], zeroed by the caller.
-extern "C" int pft_flood_round(const void* mask, void* r, void* t, void* h,
-                               void* changed, int B, int Hq, int W, int leap,
-                               void* stream) {
-  if (B > 0 && Hq > 0 && W > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    const uint32_t* m = (const uint32_t*)mask;
-    lanes_kernel<<<dim3(Hq, B), THREADS, 0, s>>>(m, (const uint32_t*)r,
-                                                 (uint32_t*)t, W, Hq);
-    rows_kernel<<<dim3((W + THREADS - 1) / THREADS, B), THREADS, 0, s>>>(
-        m, (uint32_t*)t, W, Hq);
-    hdilate_kernel<<<word_grid(Hq, W, B), THREADS, 0, s>>>(
-        (const uint32_t*)t, (uint32_t*)h, W, Hq, leap);
-    vdilate_gate_kernel<<<word_grid(Hq, W, B), THREADS, 0, s>>>(
-        m, (const uint32_t*)t, (const uint32_t*)h, (uint32_t*)r,
-        (int*)changed, W, Hq, leap);
+// Shared memory of a block of the flood: the larger of the two phases'.
+extern "C" int pft_flood_packed_smem(int Hq, int W) {
+  const long long words = 3LL * (W > Hq * COLS ? W : Hq * COLS);
+  return words * 4 > (1LL << 30) ? 1 << 30 : (int)(words * 4);
+}
+
+// The whole flood on packed [B,Hq,W] planes in one cooperative launch.
+// r: state, updated in place; t, v: scratch planes; info: int32 [4],
+// zeroed by the caller. A launch the device refuses (no cooperative
+// launch, too much shared memory) returns its error.
+extern "C" int pft_flood_packed(const void* mask, void* r, void* t, void* v,
+                                void* info, int B, int Hq, int W, int leap,
+                                int max_iters, void* stream) {
+  if (B <= 0 || Hq <= 0 || W <= 0) return (int)cudaGetLastError();
+  const int smem = pft_flood_packed_smem(Hq, W);
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && !coop) err = cudaErrorCooperativeLaunchTooLarge;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flood_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flood_kernel,
+                                                        THREADS, smem);
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorLaunchOutOfResources;
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  const long long rows = (long long)B * Hq;
+  const long long strips = (long long)B * ((W + COLS - 1) / COLS);
+  const long long work = rows > strips ? rows : strips;
+  const long long resident = (long long)per_sm * sms;
+  const int blocks = (int)(work < resident ? work : resident);
+  const uint32_t* m = (const uint32_t*)mask;
+  void* args[] = {&m, &r, &t, &v, &info, &B, &Hq, &W, &leap, &max_iters};
+  err = cudaLaunchCooperativeKernel((const void*)flood_kernel, dim3(blocks),
+                                    dim3(THREADS), args, smem,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
   }
   return (int)cudaGetLastError();
 }

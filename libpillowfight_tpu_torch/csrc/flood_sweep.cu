@@ -1,42 +1,55 @@
-// Directional sweep of the exact flood on byte planes.
+// Exact flood on byte planes: one launch sweeps the page down and then up,
+// in bands of 32 rows packed into words.
 //
 // Replaces libpillowfight_tpu/ops/pallas/flood_kernel.py
 // `_flood_sweep_kernel` (driven by `_flood_sweep` and
 // `flood_reach_pallas`).
 //
-// What it computes: on 0/1 byte planes `mask` and `reach` [B,H,W], one
-// sweep down (or up) the page that adds to `reach`, in place, every mask
-// pixel that lies within Chebyshev distance `leap` of a reached pixel in
-// the rows already swept or in its own row, transitively. It returns the
-// number of pixels it added. The flood's fixed point is the closure of
-// that rule in all directions; the host alternates down and up sweeps
-// until one of each, back to back, adds nothing.
+// What it computes: on 0/1 byte planes `mask` and `reach` [B,H,W], the
+// rule "a mask pixel within Chebyshev distance `leap` of a reached pixel
+// is reached", applied down the page and then up it. `reach` grows in
+// place; the number of pixels added goes to `changed`. The flood is the
+// closure of that rule, a unique fixed point; the host repeats launches
+// until one adds nothing.
 //
-// What differs from the TPU kernel, and why: the TPU grid runs its bands
-// in order and carries the last `leap` rows of the band before in VMEM.
-// Blocks run in no order here, so the order comes from a loop: a block
-// owns a strip of columns plus a halo of `leap` columns on each side, one
-// thread per column, and walks all the rows itself. Per row
-//   - each thread keeps, in a register, how many rows ago its column last
-//     held a reached pixel; warp ballots turn "within `leap` rows", the
-//     mask and the stored reach into bit rows in shared memory;
-//   - every warp then works on the whole strip as one bit row, a word per
-//     lane: it widens the rows-above bits by `leap` columns, closes the
-//     mask over gaps shorter than `leap` (so a run of mask pixels no more
-//     than `leap` apart is one segment), and fills the reach through the
-//     segments both ways (a fill inside each word, a carry scan across
-//     the lanes).
-// Strips exchange nothing within a sweep: a neighbour's columns are read
-// as they stand in memory, stale or not, which is harmless because reach
-// only grows. Reach that must cross a strip sideways does so in the next
-// sweep. A sweep that adds nothing has read only final values, so it
-// proves the rule for its own direction; one of each direction proves
-// the fixed point.
+// What bounds it on the H100: bytes by count (mask and reach read twice a
+// launch, 4 B/px, against 3.35 TB/s), but in fact the chain of dependent
+// steps a block takes down its strip. The design keeps that chain short:
+// - A block owns a strip of columns plus a halo of `leap` columns on each
+//   side, one thread per column, and takes the page in bands of 32 rows.
+//   A thread reads its column's 32 mask and 32 reach bytes of the band
+//   (a warp reads 32 neighbouring bytes of a row at a time) and packs them
+//   into two words, so every step below moves 32 rows at once and no warp
+//   repeats another's work. The next band's bytes are asked for before
+//   this band is worked on.
+// - A band is taken to its own fixed point: the dilation of radius `leap`
+//   (shifts inside the word along H; a doubling OR over neighbouring
+//   columns through shared memory along W), gated by the mask, then the
+//   segmented OR along H (a Kogge-Stone fill inside the word) and along W
+//   (a scan of the maps c -> a | (m & c) over the threads), until
+//   `__syncthreads_or` reports no new bit. A band with nothing left to
+//   reach, or nothing reached in range, costs two barriers.
+// - What the rows behind the band contribute is one number per column:
+//   the distance from the band's edge to the column's nearest reached row
+//   behind it. Rows of the band within `leap` of that row get a bit before
+//   the dilation along W. So any leap costs one register, not leap rows.
+// - Strips are narrow when the leap allows (128 threads up to leap 32,
+//   then 256, 512, 1024): the more blocks, the more strips walk at once.
+// - Only new bits are written back, as bytes.
 //
-// Bound on the H100: bytes, 3 B/px a sweep (mask and reach read, reach
-// written where it changes). A page has only W / (threads - 2 * leap)
-// strips, so few blocks are in flight and each row costs a barrier and a
-// thousand cycles of dependent warp work: the walk is latency bound.
+// The stop rule, for blocks that run in no order. Strips exchange nothing
+// within a launch: a neighbour's columns are read as they stand in
+// memory, stale or not, which is harmless because reach only grows and
+// every bit a block derives follows from the rule (sound). Suppose a
+// launch adds nothing. Then no byte of `reach` changed during it, so every
+// block read final values. Take a mask pixel p that is not reached and a
+// reached pixel q within `leap` of it. q's column is within `leap` of
+// p's, so it lies in the strip of the block that owns p. If q lies in p's
+// band, the band's fixed point would have added p. If q lies above, the
+// down sweep carried q's distance into p's band; if below, the up sweep
+// did. Either would have added p. So no such pair exists: the plane is
+// closed under the rule, and it is the fixed point. One idle launch
+// proves both directions at once.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -44,50 +57,16 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int FAR = 1 << 29;  // no reached row behind the band
 
-// A bit row of up to 1024 columns: word `lane` holds columns 32*lane ..
-// 32*lane+31, bit k the column 32*lane + k. Lanes past the row hold 0.
+// The map c -> a | (m & c) of one step of a segmented OR.
+struct Op {
+  uint32_t a, m;
+};
 
-// Columns move up by s (column x takes x - s), zero fill. s is the same
-// in every lane.
-__device__ __forceinline__ uint32_t row_shl(uint32_t x, int s, int lane) {
-  const int q = s >> 5, t = s & 31;
-  uint32_t lo = q ? __shfl_up_sync(FULL, x, q) : x;
-  if (lane < q) lo = 0;
-  if (!t) return lo;
-  uint32_t hi = __shfl_up_sync(FULL, x, q + 1);
-  if (lane < q + 1) hi = 0;
-  return (lo << t) | (hi >> (32 - t));
-}
-
-// Columns move down by s (column x takes x + s), zero fill.
-__device__ __forceinline__ uint32_t row_shr(uint32_t x, int s, int lane) {
-  const int q = s >> 5, t = s & 31;
-  uint32_t lo = q ? __shfl_down_sync(FULL, x, q) : x;
-  if (lane + q > 31) lo = 0;
-  if (!t) return lo;
-  uint32_t hi = __shfl_down_sync(FULL, x, q + 1);
-  if (lane + q + 1 > 31) hi = 0;
-  return (lo >> t) | (hi << (32 - t));
-}
-
-// OR of x over columns x - k .. x (up) or x .. x + k (down).
-__device__ __forceinline__ uint32_t widen_up(uint32_t x, int k, int lane) {
-  for (int c = 0; c < k;) {
-    const int s = min(c + 1, k - c);
-    x |= row_shl(x, s, lane);
-    c += s;
-  }
-  return x;
-}
-
-__device__ __forceinline__ uint32_t widen_down(uint32_t x, int k, int lane) {
-  for (int c = 0; c < k;) {
-    const int s = min(c + 1, k - c);
-    x |= row_shr(x, s, lane);
-    c += s;
-  }
-  return x;
+// `second` applied after `first`.
+__device__ __forceinline__ Op then(Op first, Op second) {
+  return Op{second.a | (second.m & first.a), second.m & first.m};
 }
 
 // Occluded fills inside one word (Kogge-Stone): spread f through runs of p.
@@ -115,134 +94,192 @@ __device__ __forceinline__ uint32_t fill_down32(uint32_t f, uint32_t p) {
   return f | (p & (f >> 16));
 }
 
-// f spread through the runs of e towards higher columns, over the whole
-// row: a fill inside each word, a carry scan over the words (a word
-// generates a carry if its top bit fills, and passes one on if it is all
-// e), and the carry let into each word's lowest run of e.
-__device__ __forceinline__ uint32_t row_fill_up(uint32_t f, uint32_t e,
-                                                int lane, int nw) {
-  const uint32_t filled = fill_up32(f, e);
-  uint32_t g = filled >> 31, p = e == FULL;
-  for (int off = 1; off < nw; off <<= 1) {
-    const uint32_t gp = __shfl_up_sync(FULL, g | (p << 1), off);
-    if (lane >= off) {
-      g |= p & gp & 1u;
-      p &= gp >> 1;
-    }
+// Rows within `leap` of a set row, inside the word.
+__device__ __forceinline__ uint32_t smear32(uint32_t x, int leap) {
+  if (leap >= 31) return x ? FULL : 0u;
+  for (int c = 0; c < leap;) {
+    const int s = min(c + 1, leap - c);
+    x |= (x << s) | (x >> s);
+    c += s;
   }
-  uint32_t carry = __shfl_up_sync(FULL, g, 1);
-  if (lane == 0) carry = 0;
-  return carry ? filled | (e & ~(e + 1u)) : filled;
+  return x;
 }
 
-// The same towards lower columns.
-__device__ __forceinline__ uint32_t row_fill_down(uint32_t f, uint32_t e,
-                                                  int lane, int nw) {
-  const uint32_t filled = fill_down32(f, e);
-  uint32_t g = filled & 1u, p = e == FULL;
-  for (int off = 1; off < nw; off <<= 1) {
-    const uint32_t gp = __shfl_down_sync(FULL, g | (p << 1), off);
-    if (lane + off < 32) {
-      g |= p & gp & 1u;
-      p &= gp >> 1;
-    }
+// OR of v over the threads tid - leap .. tid + leap of the block, by
+// doubling through two buffers in shared memory (one barrier a step).
+__device__ __forceinline__ uint32_t widen(uint32_t v, int leap,
+                                          uint32_t (*buf)[1024]) {
+  const int tid = threadIdx.x, n = blockDim.x;
+  int p = 0;
+  for (int c = 0; c < leap; p ^= 1) {
+    const int s = min(c + 1, leap - c);
+    buf[p][tid] = v;
+    __syncthreads();
+    if (tid >= s) v |= buf[p][tid - s];
+    if (tid + s < n) v |= buf[p][tid + s];
+    c += s;
   }
-  uint32_t carry = __shfl_down_sync(FULL, g, 1);
-  if (lane == 31) carry = 0;
-  const uint32_t rev = __brev(e);
-  return carry ? filled | __brev(rev & ~(rev + 1u)) : filled;
+  return v;
 }
 
-// One sweep. Block (strip, page); blockDim.x = 32 * nw columns, of which
-// the middle blockDim.x - 2 * leap are the block's own.
-__global__ void sweep_kernel(const uint8_t* __restrict__ mask, uint8_t* reach,
-                             int* __restrict__ changed, int H, int W,
-                             int leap, int down) {
-  __shared__ uint32_t rows[2][3][32];  // [row parity][m, r, above][word]
+// Segmented OR along the threads of the block: m & (any r in the thread's
+// run of m). A scan of the maps in each direction: shuffles inside a warp,
+// the warps' totals through shared memory.
+__device__ __forceinline__ uint32_t seg_or_threads(uint32_t r, uint32_t m,
+                                                   Op (*tot)[32]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
+  Op f{m & r, m}, g = f;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    Op o;
+    o.a = __shfl_up_sync(FULL, f.a, off);
+    o.m = __shfl_up_sync(FULL, f.m, off);
+    if (lane >= off) f = then(o, f);
+    o.a = __shfl_down_sync(FULL, g.a, off);
+    o.m = __shfl_down_sync(FULL, g.m, off);
+    if (lane + off < 32) g = then(o, g);
+  }
+  if (lane == 31) tot[0][warp] = f;
+  if (lane == 0) tot[1][warp] = g;
+  __syncthreads();
+  uint32_t cf = 0, cb = 0;
+  for (int w = 0; w < warp; ++w) cf = tot[0][w].a | (tot[0][w].m & cf);
+  for (int w = nw - 1; w > warp; --w) cb = tot[1][w].a | (tot[1][w].m & cb);
+  return f.a | (f.m & cf) | g.a | (g.m & cb);
+}
+
+// The bytes of one band of a column: rows y0 .. y0 + 31, 0 past the page.
+__device__ __forceinline__ void fetch(const uint8_t* m_col,
+                                      const uint8_t* r_col, bool in_page,
+                                      int y0, int H, int W, uint8_t (&pm)[32],
+                                      uint8_t (&pr)[32]) {
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const bool ok = in_page && y0 + k < H;
+    const size_t at = (size_t)(y0 + k) * W;
+    pm[k] = ok ? __ldg(m_col + at) : (uint8_t)0;
+    pr[k] = ok ? __ldcg(r_col + at) : (uint8_t)0;  // past L1: other blocks write
+  }
+}
+
+__device__ __forceinline__ void pack(const uint8_t (&pm)[32],
+                                     const uint8_t (&pr)[32], uint32_t& M,
+                                     uint32_t& R) {
+  M = R = 0;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    M |= (uint32_t)(pm[k] != 0) << k;
+    R |= (uint32_t)(pr[k] != 0) << k;
+  }
+  R &= M;
+}
+
+// One launch: every block sweeps its strip down and then up. Block
+// (strip, page); blockDim.x columns, of which the middle blockDim.x -
+// 2 * leap are the block's own. AHEAD is how many bands' bytes a thread
+// keeps on their way in registers while it works on a band: 1 (64
+// registers), or 0 for the 1024-thread blocks, which have 64 registers
+// in all. On an H100 one band ahead is several times faster than none,
+// and two bands ahead are no faster than one.
+template <int MAX_THREADS, int AHEAD>
+__global__ void __launch_bounds__(MAX_THREADS)
+    sweep_kernel(const uint8_t* __restrict__ mask, uint8_t* reach,
+                 unsigned long long* __restrict__ changed, int H, int W,
+                 int leap) {
+  __shared__ uint32_t buf[2][1024];
+  __shared__ Op tot[2][32];
+  const int tid = threadIdx.x;
   const int own = blockDim.x - 2 * leap;
-  const int col = blockIdx.x * own - leap + (int)threadIdx.x;
+  const int col = blockIdx.x * own - leap + tid;
   const bool in_page = col >= 0 && col < W;
-  const bool mine = in_page && (int)threadIdx.x >= leap &&
-                    (int)threadIdx.x < leap + own;
+  const bool mine = in_page && tid >= leap && tid < leap + own;
   const size_t page = (size_t)blockIdx.y * H * W;
   const uint8_t* m_col = mask + page + (in_page ? col : 0);
   uint8_t* r_col = reach + page + (in_page ? col : 0);
-  const uint32_t live = lane < nw ? FULL : 0u;  // lanes that hold a word
+  const int nb = (H + 31) >> 5;
 
-  int since = leap;  // rows between this row and the column's last reach
   int added = 0;
-  int y = down ? 0 : H - 1;
-  const int dy = down ? 1 : -1;
-  bool m = false, r = false;
-  if (in_page) {
-    m = m_col[(size_t)y * W] != 0;
-    r = *((volatile uint8_t*)(r_col + (size_t)y * W)) != 0;
-  }
-  for (int i = 0; i < H; ++i, y += dy) {
-    // the next row's bytes, asked for before this row's work
-    bool m_next = false, r_next = false;
-    if (in_page && i + 1 < H) {
-      m_next = m_col[(size_t)(y + dy) * W] != 0;
-      r_next = *((volatile uint8_t*)(r_col + (size_t)(y + dy) * W)) != 0;
-    }
-    const uint32_t mw = __ballot_sync(FULL, m);
-    const uint32_t rw = __ballot_sync(FULL, r && m);
-    const uint32_t aw = __ballot_sync(FULL, since < leap);
-    uint32_t (*buf)[32] = rows[i & 1];
-    if (lane == 0) {
-      buf[0][warp] = mw;
-      buf[1][warp] = rw;
-      buf[2][warp] = aw;
-    }
-    __syncthreads();
-    // every warp: the whole strip as bit rows, one word per lane
-    const uint32_t M = live & buf[0][lane & (nw - 1)];
-    const uint32_t R = live & buf[1][lane & (nw - 1)];
-    uint32_t f = R;
-    if (__any_sync(FULL, (M & ~R) != 0)) {  // else nothing left to reach
-      uint32_t A = live & buf[2][lane & (nw - 1)];
-      A = widen_up(A, leap, lane) | widen_down(A, leap, lane);
-      f = M & (R | A);
-      if (__any_sync(FULL, f != 0)) {
-        // segments: the mask closed over gaps of fewer than `leap` zeros
-        // (dilate up by leap - 1, erode back; outside the row counts as
-        // set for the erosion, so nothing is lost at the strip's end)
-        const uint32_t D = widen_up(M, leap - 1, lane);
-        const uint32_t e = live & ~widen_down(live & ~D, leap - 1, lane);
-        f = row_fill_down(row_fill_up(f, e, lane, nw), e, lane, nw) & M;
+  for (int up = 0; up < 2; ++up) {
+    // rows from the band's edge to the column's nearest reached row behind
+    int dist = FAR;
+    // the i-th band of this sweep, taken to its fixed point
+    auto work = [&](int y0, uint32_t M, uint32_t R) {
+      const uint32_t loaded = R;
+      // rows of this band within `leap` of the reached row behind it
+      const int n = leap - dist + 1;
+      const uint32_t behind = n <= 0    ? 0u
+                              : n >= 32 ? FULL
+                              : up      ? ~(FULL >> n)
+                                        : (1u << n) - 1u;
+      for (;;) {
+        const uint32_t in_range = smear32(R, leap) | behind;
+        if (!__syncthreads_or((M & ~R) != 0)) break;  // nothing left to reach
+        if (!__syncthreads_or(in_range != 0)) break;  // nothing in range
+        uint32_t r2 = R | (M & widen(in_range, leap, buf));
+        r2 = fill_up32(r2, M) | fill_down32(r2, M);
+        r2 = seg_or_threads(r2, M, tot);
+        const bool grew = r2 != R;
+        R = r2;
+        if (!__syncthreads_or(grew)) break;
+      }
+      if (mine) {
+        uint32_t fresh = R & ~loaded;
+        added += __popc(fresh);
+        while (fresh) {
+          r_col[(size_t)(y0 + __ffs(fresh) - 1) * W] = 1;
+          fresh &= fresh - 1;
+        }
+      }
+      dist = R ? (up ? __ffs(R) : __clz(R) + 1) : min(dist + 32, FAR);
+    };
+    auto row_of = [&](int i) { return (up ? nb - 1 - i : i) << 5; };
+    auto get = [&](int i, uint8_t (&pm)[32], uint8_t (&pr)[32]) {
+      if (i < nb) fetch(m_col, r_col, in_page, row_of(i), H, W, pm, pr);
+    };
+    uint32_t M, R;
+    uint8_t am[32], ar[32];
+    if (AHEAD == 0) {
+      for (int i = 0; i < nb; ++i) {
+        get(i, am, ar);
+        pack(am, ar, M, R);
+        work(row_of(i), M, R);
+      }
+    } else {
+      get(0, am, ar);
+      for (int i = 0; i < nb; ++i) {
+        pack(am, ar, M, R);
+        get(i + 1, am, ar);
+        work(row_of(i), M, R);
       }
     }
-    const uint32_t word = __shfl_sync(FULL, f, warp);
-    const bool now = (word >> lane) & 1u;
-    if (now && !r && mine) {
-      r_col[(size_t)y * W] = 1;
-      ++added;
-    }
-    since = now ? 0 : min(since + 1, leap);
-    m = m_next;
-    r = r_next;
   }
   for (int off = 16; off; off >>= 1)
     added += __shfl_down_sync(FULL, added, off);
-  if (lane == 0 && added) atomicAdd(changed, added);
+  if ((tid & 31) == 0 && added)
+    atomicAdd(changed, (unsigned long long)added);
 }
 
 }  // namespace
 
 // mask, reach: uint8/bool [B,H,W]; reach is updated in place. changed:
-// one int32, the sweep adds its count to it. threads: 256 or 1024, with
-// threads - 2 * leap >= 32.
+// one int64, the launch adds its count of new pixels to it. threads: 128,
+// 256, 512 or 1024, with threads - 2 * leap >= 32.
 extern "C" int pft_flood_sweep(const void* mask, void* reach, void* changed,
-                               int B, int H, int W, int leap, int down,
-                               int threads, void* stream) {
+                               int B, int H, int W, int leap, int threads,
+                               void* stream) {
   if (B > 0 && H > 0 && W > 0) {
     const int own = threads - 2 * leap;
     const dim3 grid((W + own - 1) / own, B);
-    sweep_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)mask, (uint8_t*)reach, (int*)changed, H, W, leap,
-        down);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (threads <= 256)
+      sweep_kernel<256, 1><<<grid, threads, 0, s>>>(
+          (const uint8_t*)mask, (uint8_t*)reach, (unsigned long long*)changed,
+          H, W, leap);
+    else
+      sweep_kernel<1024, 0><<<grid, threads, 0, s>>>(
+          (const uint8_t*)mask, (uint8_t*)reach, (unsigned long long*)changed,
+          H, W, leap);
   }
   return (int)cudaGetLastError();
 }

@@ -3,11 +3,13 @@
 Replaces `libpillowfight_tpu/ops/pallas/flood_packed.py`: `_pack_kernel`
 and `_unpack_kernel` (`pack_rows`, `unpack_rows`) and the three round
 kernels `_lanes_kernel`, `_rows_kernel`, `_dilate_kernel` driven by
-`_flood_packed`.
+`_flood_packed`: here one kernel that runs every round of a flood.
 
 Packed planes are int32 [B, ceil(H/32), W] (the bits of the reference's
-uint32 words): bit k of word (q, x) is pixel (32q + k, x). Unlike the
-reference, the port takes any page size: nothing has to fit in VMEM.
+uint32 words): bit k of word (q, x) is pixel (32q + k, x). The kernel
+stages one packed row and one 32-column strip of a page in a block's
+shared memory, which allows pages up to about 19,000 x 19,000 pixels; a
+larger one raises.
 """
 
 from __future__ import annotations
@@ -17,8 +19,11 @@ import torch
 from ... import _build
 from . import expect, use_kernel
 
-# launch counts of the kernel wrappers
+# launch counts of the kernel wrappers; "flood_round" counts floods: the
+# kernel runs all the rounds of a flood in one launch
 launches = {"pack_rows": 0, "unpack_rows": 0, "flood_round": 0}
+last_info = None  # int32 [4] on the card; [3] = rounds of the last flood
+MAX_SHARED_BYTES = 232_448 - 4096  # a block's dynamic share, less the static
 
 
 def lsr(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -162,33 +167,13 @@ def flood_round_plain(m: torch.Tensor, r: torch.Tensor, leap: int
     return r2, (r2 != t).sum(dim=(1, 2), dtype=torch.int32)
 
 
-def flood_round_cuda(m: torch.Tensor, r: torch.Tensor, leap: int,
-                     scratch: tuple[torch.Tensor, torch.Tensor]
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel round. Updates r in place (t, h of scratch are two
-    planes like r) and returns (r, changed)."""
-    expect(m, "mask", (torch.int32,), 3)
-    expect(r, "state", (torch.int32,), 3)
-    if m.shape != r.shape:
-        raise ValueError(f"mask {tuple(m.shape)} vs state {tuple(r.shape)}")
-    b, hq, w = m.shape
-    t, h = scratch
-    changed = torch.zeros(b, dtype=torch.int32, device=m.device)
-    _build.check(_build.load().pft_flood_round(
-        m.data_ptr(), r.data_ptr(), t.data_ptr(), h.data_ptr(),
-        changed.data_ptr(), b, hq, w, leap, _build.stream_of(m)),
-        "pft_flood_round")
-    launches["flood_round"] += 1
-    return r, changed
-
-
 def _flood(step, r: torch.Tensor, max_iters: int) -> torch.Tensor:
     """Rounds as the reference runs them: two, then more while the last
     one changed something and fewer than max_iters have run."""
     r, _ = step(r)
     r, changed = step(r)
     i = 2
-    while i < max_iters and int(changed.sum()) > 0:  # one host sync a round
+    while i < max_iters and int(changed.sum()) > 0:
         r, changed = step(r)
         i += 1
     return r
@@ -214,11 +199,37 @@ def flood_packed_plain(seeds_w: torch.Tensor, mask_w: torch.Tensor, h: int,
 def flood_packed_cuda(seeds_w: torch.Tensor, mask_w: torch.Tensor, h: int,
                       w: int, leap: int = 1, max_iters: int | None = None
                       ) -> torch.Tensor:
+    """The whole flood in one cooperative launch: the rounds run on the
+    card until one changes nothing (or `max_iters` have run), and the
+    host reads nothing back. Scratch is allocated once a flood."""
+    expect(mask_w, "mask", (torch.int32,), 3)
+    expect(seeds_w, "seeds", (torch.int32,), 3)
     max_iters = _flood_args(seeds_w, mask_w, h, w, leap, max_iters)
-    r = (seeds_w & mask_w).contiguous()
-    scratch = (torch.empty_like(r), torch.empty_like(r))
-    return _flood(lambda r: flood_round_cuda(mask_w, r, leap, scratch), r,
-                  max_iters)
+    b, hq, wq = mask_w.shape
+    lib = _build.load()
+    if lib.pft_flood_packed_smem(hq, wq) > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"h={h}, w={w}: the packed flood stages a packed row (w <= "
+            f"{MAX_SHARED_BYTES // 12}) and a 32-column strip (h <= "
+            f"{MAX_SHARED_BYTES // 384 * 32}) in shared memory")
+    r = seeds_w & mask_w
+    t, v = torch.empty_like(r), torch.empty_like(r)
+    info = torch.zeros(4, dtype=torch.int32, device=r.device)
+    # a leap past the page reaches nothing more; the cap keeps C ints
+    _build.check(lib.pft_flood_packed(
+        mask_w.data_ptr(), r.data_ptr(), t.data_ptr(), v.data_ptr(),
+        info.data_ptr(), b, hq, wq, min(leap, max(h, wq)),
+        min(max_iters, 2**31 - 1), _build.stream_of(r)), "pft_flood_packed")
+    launches["flood_round"] += 1
+    global last_info
+    last_info = info
+    return r
+
+
+def rounds_of_last_flood() -> int:
+    """Rounds the last `flood_packed_cuda` ran (reads the card: for
+    measurement, not for the paths)."""
+    return int(last_info[3])
 
 
 def flood_packed(seeds_w: torch.Tensor, mask_w: torch.Tensor, h: int, w: int,

@@ -22,7 +22,7 @@ from . import expect, use_kernel
 
 MAX_LEAP = 384  # 1024 threads a block less a halo of `leap` on each side
 
-launches = 0  # launch count of the kernel wrapper (one per sweep)
+launches = 0  # launches of the kernel (each a sweep down and a sweep up)
 
 
 def _args(seeds, mask, leap, max_iters) -> tuple:
@@ -85,13 +85,23 @@ def flood_sweep_plain(seeds: torch.Tensor, mask: torch.Tensor, leap: int = 1,
     return r
 
 
+def _threads(leap: int) -> int:
+    """Columns of a block's strip, halo included: narrow strips while the
+    halo of `leap` on each side leaves at least half of them its own."""
+    for threads in (128, 256, 512):
+        if 4 * leap <= threads:
+            return threads
+    return 1024
+
+
 def sweep_cuda(mask: torch.Tensor, reach: torch.Tensor,
-               changed: torch.Tensor, leap: int, down: bool) -> None:
-    """One kernel sweep: grows `reach` in place and adds the number of
-    pixels it reached to `changed` (int32 [1])."""
+               changed: torch.Tensor, leap: int) -> None:
+    """One kernel launch, a sweep down and a sweep up: grows `reach` in
+    place and adds the number of pixels it reached to `changed` (int64
+    [1])."""
     expect(mask, "mask", (torch.bool, torch.uint8), 3)
     expect(reach, "reach", (torch.bool, torch.uint8), 3)
-    expect(changed, "changed", (torch.int32,), 1)
+    expect(changed, "changed", (torch.int64,), 1)
     if mask.shape != reach.shape:
         raise ValueError(f"mask {tuple(mask.shape)} vs reach "
                          f"{tuple(reach.shape)}")
@@ -101,35 +111,35 @@ def sweep_cuda(mask: torch.Tensor, reach: torch.Tensor,
     b, h, w = mask.shape
     if b > 65535:
         raise ValueError(f"batch {b}: at most 65535 pages")
-    threads = 256 if leap <= 64 else 1024
     _build.check(_build.load().pft_flood_sweep(
         mask.data_ptr(), reach.data_ptr(), changed.data_ptr(), b, h, w,
-        leap, int(down), threads, _build.stream_of(mask)), "pft_flood_sweep")
+        leap, _threads(leap), _build.stream_of(mask)), "pft_flood_sweep")
     global launches
     launches += 1
 
 
 def flood_sweep_cuda(seeds: torch.Tensor, mask: torch.Tensor, leap: int = 1,
                      max_iters: int | None = None) -> torch.Tensor:
-    """Down and up sweeps in turns until one of each, back to back, has
-    added nothing; at most 2 * max_iters sweeps.
+    """Launches of a down and an up sweep each until one adds nothing; at
+    most max_iters launches. The host reads one count a launch.
 
     The reference stops at the first sweep that adds nothing, which its
-    ordered bands allow. Here the strips of one sweep do not wait for each
-    other, so a sweep that adds nothing proves only its own direction
-    (rows already swept, and the row itself); the sweep before it in the
-    other direction must have added nothing either."""
+    ordered bands allow. Here the strips of one launch do not wait for
+    each other, so the proof takes a whole launch that adds nothing: it
+    has read only final values, in both directions (`flood_sweep.cu`)."""
     leap, max_iters = _args(seeds, mask, leap, max_iters)
+    # no copy where the caller's planes are contiguous bool already; the
+    # AND makes the plane the kernel grows in place
     mask = mask.to(torch.bool).contiguous()
-    reach = (seeds.to(torch.bool) & mask).contiguous()
-    changed = torch.zeros(1, dtype=torch.int32, device=mask.device)
-    idle = 0
-    for i in range(2 * max_iters):
-        changed.zero_()
-        sweep_cuda(mask, reach, changed, leap, down=i % 2 == 0)
-        idle = idle + 1 if int(changed) == 0 else 0  # one host sync a sweep
-        if idle == 2:
+    reach = seeds.to(torch.bool) & mask
+    changed = torch.zeros(1, dtype=torch.int64, device=mask.device)
+    total = 0
+    for _ in range(max_iters):
+        sweep_cuda(mask, reach, changed, leap)
+        now = int(changed)  # the launch's one read on the host
+        if now == total:
             break
+        total = now
     return reach
 
 

@@ -57,8 +57,8 @@ def flood_reach(seeds: torch.Tensor, mask: torch.Tensor,
                          f"8-connected only")
     b, h, w = mask.shape
     mask = mask.to(torch.bool)
-    seeds = seeds.to(torch.bool) & mask
-    if not packed_fits(h, w):
+    seeds = seeds.to(torch.bool)
+    if not packed_fits(h, w):  # both floods keep the seeds inside the mask
         return flood_sweep(seeds, mask, leap=leap, max_iters=max_iters)
     out = flood_packed(pack_rows(seeds), pack_rows(mask), h, w, leap=leap,
                        max_iters=max_iters)

@@ -59,3 +59,81 @@ def text_pages(b: int, h: int, w: int, seed: int = 0) -> np.ndarray:
             elif kind == 2:  # T: a bar across the top
                 pages[:, top: top + s, x: x + 17, :3] = 15
     return pages
+
+
+def _snake(h: int, w: int, x0: int, arms: int, vertical: bool):
+    """A one-pixel path of `arms` parallel arms two pixels apart, joined at
+    alternating ends, from column (or row) x0 on; the seed is its start."""
+    mask = np.zeros((1, h, w), bool)
+    for i in range(arms):
+        mask[0, :, x0 + 2 * i] = True
+        if i + 1 < arms:
+            mask[0, h - 1 if i % 2 == 0 else 0, x0 + 2 * i + 1] = True
+    seeds = np.zeros_like(mask)
+    seeds[0, 0, x0] = True
+    if not vertical:
+        mask, seeds = mask.transpose(0, 2, 1), seeds.transpose(0, 2, 1)
+    return np.ascontiguousarray(seeds), np.ascontiguousarray(mask)
+
+
+def _gaps(leap: int):
+    """Pixels exactly `leap` and `leap + 1` apart along each axis and on
+    the diagonal: the first are joined, the second are not. Page 1 is
+    page 0 turned by 180 degrees."""
+    n = 2 * leap + 10
+    mask = np.zeros((2, n, n + 2), bool)
+    seeds = np.zeros_like(mask)
+    a = 5
+    for y, x in ((a, a), (a, a + leap), (a + leap, a), (a + leap, a + leap),
+                 (a, a + 2 * leap + 1), (a + 2 * leap + 1, a)):
+        mask[0, y, x] = True
+    seeds[0, a, a] = True
+    mask[1], seeds[1] = mask[0, ::-1, ::-1], seeds[0, ::-1, ::-1]
+    return seeds, mask
+
+
+# (name, rows, columns, leap) of the random planes of `flood_cases`: rows
+# around a 32-row band, columns around a 128-thread strip and around 217
+FLOOD_RANDOM = (("h31_w127_leap1", 31, 127, 1), ("h33_w218_leap1", 33, 218, 1),
+                ("h32_w128_leap20", 32, 128, 20),
+                ("h64_w130_leap20", 64, 130, 20),
+                ("h33_w129_leap31", 33, 129, 31),
+                ("h65_w217_leap32", 65, 217, 32),
+                ("h65_w216_leap33", 65, 216, 33))
+FLOOD_GAP_LEAPS = (1, 20, 31, 32, 33)
+FLOOD_CASE_NAMES = (tuple(f"random_{c[0]}" for c in FLOOD_RANDOM)
+                    + tuple(f"gaps_leap{k}" for k in FLOOD_GAP_LEAPS)
+                    + ("snake_rows", "snake_columns", "border_ring",
+                       "no_seeds"))
+
+
+def flood_cases(seed: int = 0) -> list:
+    """Edge cases of the exact flood, as (name, seeds, mask, leap) with
+    bool [B,H,W] planes, in the order of `FLOOD_CASE_NAMES`: random planes
+    near the percolation density of their leap, gaps of exactly `leap`
+    and `leap + 1`, one-pixel snakes along each axis (the one along the
+    columns needs a sweep down or up for every arm), a solid ring with a
+    blob out of reach inside, and a plane without seeds. Every page is at
+    most 100 x 220 pixels."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for name, h, w, leap in FLOOD_RANDOM:
+        density = 0.45 if leap == 1 else 3.0 / (2 * leap + 1) ** 2
+        mask = rng.random((2, h, w)) < density
+        seeds = mask & (rng.random((2, h, w)) < 0.02)
+        seeds[:, h // 2, w // 3] = mask[:, h // 2, w // 3] = True
+        cases.append((f"random_{name}", seeds, mask, leap))
+    for leap in FLOOD_GAP_LEAPS:
+        cases.append((f"gaps_leap{leap}", *_gaps(leap), leap))
+    cases.append(("snake_rows", *_snake(130, 33, 3, 9, False), 1))
+    cases.append(("snake_columns", *_snake(65, 217, 119, 7, True), 1))
+    mask = np.zeros((1, 65, 217), bool)
+    mask[0, :3] = mask[0, -3:] = mask[0, :, :3] = mask[0, :, -3:] = True
+    mask[0, 31:34, 100:110] = True  # 28 rows from the ring: out of reach
+    seeds = np.zeros_like(mask)
+    seeds[0, 64, 216] = True
+    cases.append(("border_ring", seeds, mask, 20))
+    mask = rng.random((1, 40, 150)) < 0.4
+    cases.append(("no_seeds", np.zeros_like(mask), mask, 1))
+    assert tuple(c[0] for c in cases) == FLOOD_CASE_NAMES
+    return cases

@@ -140,8 +140,8 @@ def test_cuda_path_never_takes_cpu_tensors():
     for call in (lambda: tlc.line_counts_cuda(plane),
                  lambda: tflood.pack_rows_cuda(plane),
                  lambda: tflood.unpack_rows_cuda(words, 40),
-                 lambda: tflood.flood_round_cuda(
-                     words, words.clone(), 1, (words.clone(), words.clone())),
+                 lambda: tflood.flood_packed_cuda(words, words.clone(), 40,
+                                                  33),
                  lambda: tnoise.noise_cert_cuda(plane, 2, 5),
                  lambda: tnoise.noise_ball_cuda(plane, 1),
                  lambda: tgauss.gaussian_sep_cuda(plane.float(), (1.0,)),

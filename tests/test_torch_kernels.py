@@ -326,6 +326,16 @@ def test_flood_sweep_arguments():
     assert not tsweep.flood_sweep(seeds, mask, leap=6)[0, 7, 7]
 
 
+def test_flood_sweep_strip_width():
+    """Every leap the sweep kernel takes leaves a block columns of its
+    own between its two halos, half of the strip up to leap 128."""
+    for leap in range(1, tsweep.MAX_LEAP + 1):
+        threads = tsweep._threads(leap)
+        assert threads in (128, 256, 512, 1024)
+        assert threads - 2 * leap >= (threads // 2 if leap <= 128 else 256)
+    assert tsweep._threads(20) == 128 and tsweep._threads(70) == 512
+
+
 def test_packed_fits_equals_reference():
     sizes = [1, 31, 32, 33, 127, 128, 129, 500, 2480, 3508, 4960, 7016]
     for h in sizes:
