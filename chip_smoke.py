@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against DIR   # see `against` below
+    python3 chip_smoke.py --issue-rates   # the card's f32 issue rates
 
 1. requires a CUDA card (exits non-zero without one);
 2. prints the card's name and power limit (nvidia-smi);
@@ -16,7 +18,14 @@
    their plain versions on the shared edge cases of
    `utils.pages.flood_cases` (heights around a 32-row band, widths around
    a strip, leaps 1 to 33, snakes, a solid ring, no seeds) and on random
-   planes up to leap 70, with their sweeps and rounds per flood;
+   planes up to leap 70, with their sweeps and rounds per flood; the
+   label kernel on the shared edge cases of `utils.pages.label_cases`
+   (planes around its tile and its loads, snakes, a spiral, diagonal-only
+   links, links off the page), bit-identical; the ACE spray's measured
+   error at a default, a steep and a shallow slope for 1, 100 and 1000
+   samples, in both forms of its channel term; `flood_reach` 4-connected
+   and `compare` on the card against the same call on the CPU. A kernel
+   whose time reads under its bound fails the run;
 5. drives six paths through the port's run_pipeline on the card, each
    with every launch count set to 0 just before and read just after, and
    checks that each launched its kernels:
@@ -46,6 +55,15 @@
 7. prints the kernels line (JSON), then the result line (JSON), last.
 
 Any failed phase raises, and the exit code is then non-zero.
+
+With `--against DIR`, where DIR holds another tree of this repository (for
+example `git archive <parent> | tar -x -C .scratch/parent`), the script
+loads that tree's package beside this one in one process and takes the
+two in turns (other, this, this, other) on the same tensors: the label
+kernel and the ACE spray at A4 x 2, with their outputs compared bit for
+bit, the device time of each call split by kernel name, and the five
+timed paths. It prints one JSON object and writes it to
+`chiprun_out/against.json`.
 """
 
 from __future__ import annotations
@@ -65,14 +83,22 @@ CHECK_BATCH, TIME_BATCH, TIME_BATCH_600 = 2, 16, 4
 TIME_ITERS = 6
 ACE_SEED = 7
 CANNY_BAR = 0.001     # share of edge pixels that may differ
-ACE_SPRAY_RTOL = 1e-5  # of the largest possible sum (see check_kernels)
 SWT_IOU_BAR = 0.99    # letter-mask IoU, card against CPU
 SWT_SMALL = (800, 1000)  # a page the CPU takes about ten seconds for
 
 # the card's published peaks (H100 SXM data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-ACE_OPS_PER_PIXEL_SAMPLE = 25  # f32 operations, counted in ace_spray.cu
+# The ACE spray's work a pixel and sample, whatever implements it: the
+# leanest form of the function known takes 10 issue slots of the f32 pipes
+# (add for dy, FMA for d2, max, add for invd; a channel: one saturating
+# add of pre-scaled values and one FMA) and one rsqrt of the
+# special-function unit, which issues in a slot of its own: 11 slots. The
+# card issues 128 f32 instructions a clock and SM (half its FMA rate in
+# FLOP/s) and 16 special-function results.
+ACE_SLOTS_PER_PIXEL_SAMPLE = 11
+SLOTS_PER_S = F32_OPS_PER_S / 2
+SFU_OPS_PER_S = SLOTS_PER_S / 8
 
 _PALLAS = "libpillowfight_tpu/ops/pallas/"
 _CSRC = "libpillowfight_tpu_torch/csrc/"
@@ -123,14 +149,25 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: int, n_ops: float = 0.0) -> dict:
+def bound(n_bytes: int, n_ops: float = 0.0, n_sfu: float = 0.0) -> dict:
     """The least time for the work: each input read once and each output
     written once at the card's memory rate, or the f32 operations at the
-    card's rate outside the tensor cores, whichever is longer."""
+    card's rate outside the tensor cores (an instruction that is no FMA
+    counts 2, the FMA it keeps from issuing), or the special-function
+    results at their rate, whichever is longest."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / F32_OPS_PER_S * 1e3
+    by_ops = max(n_ops / F32_OPS_PER_S, n_sfu / SFU_OPS_PER_S) * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def spray_errors(got, want) -> tuple:
+    """(max |num diff|, max |invd diff|, max invd) of two spray results.
+    Every term |clip(.) * inv_d| <= limit * inv_d, so |num| <= limit *
+    invd: the bar `ACE_SPRAY_RTOL` (`ops/cuda/ace.py`) holds num to that
+    share of limit * max(invd) and invd to that share of max(invd)."""
+    return (max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]),
+            float(want[1].max()))
 
 
 def words_on(pages, dev) -> torch.Tensor:
@@ -315,6 +352,107 @@ def check_flood_cases(dev) -> None:
         + ", ".join(notes) + ")")
 
 
+def check_label_cases(dev) -> None:
+    """The label kernel against its plain version on the shared edge
+    cases, bit-identical."""
+    from libpillowfight_tpu_torch.ops.cuda import label as lb
+    from libpillowfight_tpu_torch.utils.pages import label_cases
+
+    notes = []
+    for name, valid, links in label_cases():
+        valid = torch.from_numpy(valid).to(dev)
+        if links is not None:
+            links = {d: torch.from_numpy(v).to(dev) for d, v in links.items()}
+        got = lb.label_links_cuda(valid, links)
+        want = lb.label_links_plain(valid, links)
+        if not torch.equal(got, want):
+            n = int((got != want).sum())
+            raise AssertionError(f"label_links differs from plain on the "
+                                 f"edge case {name} ({n} pixels)")
+        h, w = valid.shape[1:]
+        flat = torch.arange(h * w, device=dev, dtype=torch.int32).view(1, h, w)
+        notes.append(f"{name} {int((got == flat).sum())}")
+    log(f"label_links on {len(notes)} shared edge cases: bit-identical to "
+        f"plain (components: " + ", ".join(notes) + ")")
+
+
+def check_spray_errors(words2) -> None:
+    """The ACE spray kernel's error against its plain version at A4 x 2,
+    for 1, 100 and 1000 samples at the default, a steep and a shallow
+    slope, in both forms of the channel term; every one inside the bar."""
+    from libpillowfight_tpu_torch.core import constants as C
+    from libpillowfight_tpu_torch.core.bitmap import words_to_pages
+    from libpillowfight_tpu_torch.ops import ace as tace
+    from libpillowfight_tpu_torch.ops.cuda import ace as spray
+
+    pages = words_to_pages(words2)
+    b, h, w, _ = pages.shape
+    limit = C.ACE_DEFAULT_LIMIT
+    rows = []
+    for s in (1, 100, 1000):
+        sy, sx = tace.sample_coords(ACE_SEED + s, b, s, h, w)
+        sy, sx = sy.to(pages.device), sx.to(pages.device)
+        planar, sval = tace.spray_inputs(pages, sy, sx)
+        for what, slope in (("default", C.ACE_DEFAULT_SLOPE), ("steep", 1e5),
+                            ("shallow", 0.05)):
+            want = spray.ace_spray_plain(planar, sy, sx, sval, slope, limit)
+            forms = {"exact difference": False}
+            if abs(slope) / (2 * limit) * 255 <= spray.PRESCALED_MAX_KI:
+                forms["prescaled"] = True
+            for form, prescaled in forms.items():
+                got = spray.ace_spray_cuda(planar, sy, sx, sval, slope, limit,
+                                           prescaled=prescaled)
+                err_n, err_i, top = spray_errors(got, want)
+                rel_n, rel_i = err_n / (limit * top), err_i / top
+                rows.append(f"S={s} {what} ({form}): num {rel_n:.2e}, invd "
+                            f"{rel_i:.2e}")
+                if max(rel_n, rel_i) > spray.ACE_SPRAY_RTOL:
+                    raise AssertionError(
+                        f"ace_spray at S={s}, slope {slope}, {form}: error "
+                        f"{max(rel_n, rel_i)} past {spray.ACE_SPRAY_RTOL}")
+            del want, got
+    log(f"kernel ace_spray A4 x {b}, error against plain as a share of the "
+        f"largest possible sum (bar {spray.ACE_SPRAY_RTOL}): "
+        + "; ".join(rows))
+
+
+def check_flood4_and_compare(words2, gray) -> None:
+    """`flood_reach` 4-connected and `compare` on the card against the
+    same calls on the CPU, bit-identical (plain torch on both devices)."""
+    import libpillowfight_tpu_torch as pt
+    from libpillowfight_tpu_torch.core.bitmap import words_to_pages
+    from libpillowfight_tpu_torch.ops.morph import flood_reach
+
+    from libpillowfight_tpu_torch.ops.unpaper.common import dark_mask
+
+    # the dark pixels of a corner of the page, flooded from its first
+    # column (the black border)
+    dark = dark_mask(gray)[:, :1200, :900].contiguous()
+    seeds = torch.zeros_like(dark)
+    seeds[:, :, 0] = dark[:, :, 0]
+    got = flood_reach(seeds, dark, connectivity=4)
+    want = flood_reach(seeds.cpu(), dark.cpu(), connectivity=4)
+    if not torch.equal(got.cpu(), want) or int(want.sum()) == 0:
+        raise AssertionError("flood_reach 4-connected on the card differs "
+                             "from the CPU")
+    log(f"flood_reach connectivity=4 {tuple(want.shape)}: bit-identical to "
+        f"the CPU ({int(want.sum())} pixels reached)")
+    pages = words_to_pages(words2)
+    other = words_to_pages(pt.run_pipeline(
+        words2, pt.normalize_spec([("unpaper_noisefilter", {})])))
+    for tol in (0, 100):
+        n, diff = pt.compare(pages, other, tolerance=tol)
+        n_cpu, diff_cpu = pt.compare(pages.cpu(), other.cpu(), tolerance=tol)
+        if not (torch.equal(n.cpu(), n_cpu)
+                and torch.equal(diff.cpu(), diff_cpu)):
+            raise AssertionError(f"compare (tolerance {tol}) on the card "
+                                 f"differs from the CPU")
+        log(f"compare A4 x {pages.shape[0]}, tolerance {tol}: bit-identical "
+            f"to the CPU, differing pixels a page {n.tolist()}")
+    if int(n_cpu.sum()) == 0:
+        raise AssertionError("compare: the noisefilter changed no pixel")
+
+
 def check_kernels(words2, swt2: dict, words600) -> dict:
     """Each kernel vs its plain version: on one A4 x 2 batch's planes,
     on the planes SWT builds on an A4 x 2 batch with glyphs (`swt2`), and
@@ -357,15 +495,9 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
         return err, err == 0.0
 
     def spray_bar(got, want):
-        """Every term |clip(.) * inv_d| <= limit * inv_d, so |num| <=
-        limit * invd; rsqrtf is ~2 ulp from the plain rsqrt, and the
-        sums run in the same order: both outputs are held to
-        ACE_SPRAY_RTOL of their largest possible magnitude."""
-        top = float(want[1].max())
-        err_n, err_i = max_abs_err(got[0], want[0]), max_abs_err(got[1],
-                                                                 want[1])
-        ok = (err_n <= ACE_SPRAY_RTOL * limit * top
-              and err_i <= ACE_SPRAY_RTOL * top)
+        err_n, err_i, top = spray_errors(got, want)
+        ok = (err_n <= spray.ACE_SPRAY_RTOL * limit * top
+              and err_i <= spray.ACE_SPRAY_RTOL * top)
         return max(err_n, err_i), ok
 
     def blur_library():
@@ -374,7 +506,8 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
         return F.conv2d(rows, tap_row.transpose(2, 3), padding=(r, 0))
 
     # name -> (kernel, plain, bar, inputs, f32 operations, one PyTorch
-    # call for the same function or None)
+    # call for the same function or None, special-function results)
+    n_spray = sy.shape[-1] * b * h * w  # pixel-samples
     cases = {
         "line_counts": (lambda: lc.line_counts_cuda(dark),
                         lambda: lc.line_counts_plain(dark), exact, [dark], 0,
@@ -402,7 +535,7 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
             lambda: spray.ace_spray_cuda(planar, sy, sx, sval, slope, limit),
             lambda: spray.ace_spray_plain(planar, sy, sx, sval, slope, limit),
             spray_bar, [planar, sy, sx, sval],
-            ACE_OPS_PER_PIXEL_SAMPLE * sy.shape[-1] * b * h * w, None),
+            2 * ACE_SLOTS_PER_PIXEL_SAMPLE * n_spray, None, n_spray),
         "label_links": (lambda: lb.label_links_cuda(valid, links),
                         lambda: lb.label_links_plain(valid, links), exact,
                         [valid, *links.values()], 0, None),
@@ -412,7 +545,8 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
             exact, [seeds600, dark600], 0, None),
     }
     out = {}
-    for name, (kernel, plain, bar, inputs, n_ops, library) in cases.items():
+    for name, (kernel, plain, bar, inputs, n_ops, library,
+               *n_sfu) in cases.items():
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         err, ok = bar(got, want)
@@ -423,9 +557,12 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
         out[name] = {
             "max_abs_err": err, "ms": cuda_ms(kernel),
             "plain_ms": cuda_ms(plain, iters=2),
-            **bound(nbytes(*inputs, *outputs), n_ops),
+            **bound(nbytes(*inputs, *outputs), n_ops, *n_sfu),
             "library_ms": cuda_ms(library) if library else None}
         r = out[name]
+        if r["ms"] < r["bound_ms"]:
+            raise AssertionError(f"{name}: {r['ms']} ms reads under its "
+                                 f"bound of {r['bound_ms']} ms")
         log(f"kernel {name}: max |diff| {err}; {r['ms']:.4f} ms vs plain "
             f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}; one PyTorch call: "
@@ -486,6 +623,10 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
     log("kernel label_links on a random plane with random links "
         "(2 x 1000 x 700): bit-identical")
     del rvalid, rlinks
+
+    check_label_cases(dark.device)
+    check_spray_errors(words2)
+    check_flood4_and_compare(words2, gray)
 
     # the sweep flood against the packed flood, and at leap 1
     sweep = fs.flood_sweep_cuda(seeds600, dark600, leap=20)
@@ -773,9 +914,272 @@ def idle_share(fn, x, name: str, wall_ms: float) -> None:
         f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.1%}")
 
 
+def load_tree(root: str, name: str):
+    """The package of another tree of this repository, loaded beside this
+    one under the module name `name` (its relative imports stay inside
+    it, and it builds its own kernels from its own sources)."""
+    import importlib.util
+    from pathlib import Path
+
+    pkg = Path(root).resolve() / "libpillowfight_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def device_split(fn, iters: int = 5) -> dict:
+    """Device time of fn() by kernel name, ms a call (`torch.profiler`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = (getattr(e, "self_device_time_total", 0)
+                  or getattr(e, "self_cuda_time_total", 0))
+            split[e.key[:70]] = round(us / 1e3 / iters, 4)
+    return split
+
+
+def in_turns(other, this, iters: int = 20) -> dict:
+    """ms a call of two functions taken other, this, this, other."""
+    order = (("other", other), ("this", this), ("this", this),
+             ("other", other))
+    times = {"other": [], "this": []}
+    for who, fn in order:
+        times[who].append(round(cuda_ms(fn, iters=iters), 4))
+    return times
+
+
+def against(root: str) -> int:
+    """This tree's label kernel, ACE spray and timed paths against those
+    of the tree at `root`, in turns in one process (see the module's
+    docstring)."""
+    import importlib
+    import os
+
+    import libpillowfight_tpu_torch as pt
+    from libpillowfight_tpu_torch.core import constants as C
+    from libpillowfight_tpu_torch.core.bitmap import (words_to_gray,
+                                                      words_to_pages)
+    from libpillowfight_tpu_torch.ops import ace as tace
+    from libpillowfight_tpu_torch.ops.cuda import ace as spray
+    from libpillowfight_tpu_torch.ops.cuda import label as lb
+    from libpillowfight_tpu_torch.ops.unpaper.common import nonwhite_mask
+    from libpillowfight_tpu_torch.utils.pages import (synthetic_pages,
+                                                      text_pages)
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+    log(card)
+    other = load_tree(root, "pft_other")
+    o_lb = importlib.import_module("pft_other.ops.cuda.label")
+    o_spray = importlib.import_module("pft_other.ops.cuda.ace")
+    importlib.import_module("pft_other._build").load()
+    pt._build.load()
+    result = {"card": card, "other": root}
+
+    # the label kernel: SWT's planes, then the non-white plane
+    words2 = words_on(synthetic_pages(CHECK_BATCH, A4_H, A4_W), dev)
+    swt2 = swt_stages(words_on(text_pages(CHECK_BATCH, A4_H, A4_W), dev))
+    valid, links = swt2["valid"], swt2["links"]
+    del swt2
+    nonwhite = nonwhite_mask(words_to_gray(words2))
+    planes = {"swt planes": (valid, links), "non-white, 8-connected":
+              (nonwhite, None), "non-white, 4-connected":
+              (nonwhite, lb.mask_links(nonwhite, 4))}
+    for what, (v, l) in planes.items():
+        if not torch.equal(o_lb.label_links_cuda(v, l),
+                           lb.label_links_cuda(v, l)):
+            raise AssertionError(f"label_links ({what}): the two trees "
+                                 f"differ")
+        result[f"label_links, {what}"] = in_turns(
+            lambda: o_lb.label_links_cuda(v, l),
+            lambda: lb.label_links_cuda(v, l))
+        log(f"label_links A4 x {CHECK_BATCH}, {what}: bit-identical; ms "
+            f"{result[f'label_links, {what}']}")
+    for who, mod in (("other", o_lb), ("this", lb)):
+        result[f"label_links split, {who}"] = device_split(
+            lambda: mod.label_links_cuda(valid, links))
+        log(f"label_links on SWT's planes, device ms a call by kernel "
+            f"({who}): {result[f'label_links split, {who}']}")
+    # what the new design costs with no pixel to label and with no gap
+    for what, plane in (("empty plane", torch.zeros_like(nonwhite)),
+                        ("plane without a gap", torch.ones_like(nonwhite))):
+        result[f"label_links split, this, {what}"] = device_split(
+            lambda: lb.label_links_cuda(plane, None))
+        log(f"label_links, {what}, A4 x {CHECK_BATCH}, 8-connected, "
+            f"device ms a call by kernel (this): "
+            f"{result[f'label_links split, this, {what}']}")
+    tiles = valid[:, :A4_H // 32 * 32, :A4_W // 64 * 64].reshape(
+        CHECK_BATCH, A4_H // 32, 32, A4_W // 64, 64)
+    result["swt planes"] = {
+        "valid share": float(valid.float().mean()),
+        "share of 64 x 32 tiles with a valid pixel":
+            float(tiles.any(dim=4).any(dim=2).float().mean())}
+    log(f"SWT's planes: {result['swt planes']}")
+    del valid, links, nonwhite, planes, tiles
+
+    # the ACE spray
+    pages = words_to_pages(words2)
+    b, h, w, _ = pages.shape
+    sy, sx = tace.sample_coords(ACE_SEED, b, C.ACE_DEFAULT_NB_SAMPLES, h, w)
+    sy, sx = sy.to(dev), sx.to(dev)
+    planar, sval = tace.spray_inputs(pages, sy, sx)
+    args = (planar, sy, sx, sval, C.ACE_DEFAULT_SLOPE, C.ACE_DEFAULT_LIMIT)
+    was = o_spray.ace_spray_cuda(*args)
+    for form, kw in (("default form", {}), ("exact difference",
+                                            {"prescaled": False})):
+        now = spray.ace_spray_cuda(*args, **kw)
+        err_n, err_i, top = spray_errors(now, was)
+        same = torch.equal(now[1], was[1])
+        result[f"ace_spray, {form}"] = {
+            **in_turns(lambda: o_spray.ace_spray_cuda(*args),
+                       lambda: spray.ace_spray_cuda(*args, **kw), iters=10),
+            "invd_bit_identical": same,
+            "num_diff_share": err_n / (C.ACE_DEFAULT_LIMIT * top)}
+        log(f"ace_spray A4 x {b}, S = {sy.shape[1]}, {form}: invd "
+            f"bit-identical to the other tree's: {same} (max |diff| "
+            f"{err_i}); num differs by {err_n / (C.ACE_DEFAULT_LIMIT * top):.2e} "
+            f"of the largest possible sum; ms {result[f'ace_spray, {form}']}")
+    del was, now, planar, sval, pages, words2
+
+    # the five timed paths, other / this / this / other
+    specs = {"swt (mode 0)": [("swt", {})], "chain": pt.DOCUMENT_CLEANUP,
+             "EDGE_STACK": pt.EDGE_STACK,
+             "ace (100 samples)": [("ace", {"seed": ACE_SEED})]}
+    text = [words_on(text_pages(TIME_BATCH, A4_H, A4_W, seed=s), dev)
+            for s in (0, 1)]
+    dirty = [words_on(synthetic_pages(TIME_BATCH, A4_H, A4_W, seed=s), dev)
+             for s in (0, 1)]
+
+    def paths(name, spec, batches):
+        times = {"other": [], "this": []}
+        for who, mod in (("other", other), ("this", pt), ("this", pt),
+                         ("other", other)):
+            norm = mod.normalize_spec(spec)
+            times[who].append(round(time_path(
+                lambda x: mod.run_pipeline(x, norm), batches,
+                f"{name} [{who}]", card), 4))
+        result[f"path {name}"] = times
+
+    for name, spec in specs.items():
+        paths(name, spec, text if name.startswith("swt") else dirty)
+    del text, dirty
+    dirty = [words_on(synthetic_pages(TIME_BATCH_600, A4_600_H, A4_600_W,
+                                      seed=s), dev) for s in (0, 1)]
+    paths("chain at 600 dpi", pt.DOCUMENT_CLEANUP, dirty)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/against.json", "w") as f:
+        json.dump(result, f, indent=1)
+    log(json.dumps(result))
+    return 0
+
+
+RATE_KERNEL_SOURCE = r"""
+// Issue rate of one f32 instruction: every thread runs 8 independent
+// chains of it, so that latency hides and the issue rate shows.
+#include <cuda_runtime.h>
+template <int OP>
+__global__ void chains(float* out, const float* in, int iters) {
+  float x[8], a = in[0], b = in[1];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = in[2] + threadIdx.x + j;
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (OP == 0) asm volatile("fma.rn.f32 %0, %0, %1, %2;" : "+f"(x[j]) : "f"(a), "f"(b));
+      if (OP == 1) asm volatile("add.f32 %0, %0, %1;" : "+f"(x[j]) : "f"(a));
+      if (OP == 2 && i % 2 == 0) asm volatile("max.f32 %0, %0, %1;" : "+f"(x[j]) : "f"(a));
+      if (OP == 2 && i % 2 == 1) asm volatile("min.f32 %0, %0, %1;" : "+f"(x[j]) : "f"(b));
+      if (OP == 3) asm volatile("rsqrt.approx.ftz.f32 %0, %0;" : "+f"(x[j]));
+      if (OP == 4) asm volatile("fma.rn.sat.f32 %0, %0, %1, %2;" : "+f"(x[j]) : "f"(a), "f"(b));
+    }
+  }
+  float sum = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) sum += x[j];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
+}
+extern "C" int issue_rate(int op, void* out, const void* in, int blocks,
+                          int iters, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  float* o = (float*)out;
+  const float* i = (const float*)in;
+  if (op == 0) chains<0><<<blocks, 256, 0, s>>>(o, i, iters);
+  if (op == 1) chains<1><<<blocks, 256, 0, s>>>(o, i, iters);
+  if (op == 2) chains<2><<<blocks, 256, 0, s>>>(o, i, iters);
+  if (op == 3) chains<3><<<blocks, 256, 0, s>>>(o, i, iters);
+  if (op == 4) chains<4><<<blocks, 256, 0, s>>>(o, i, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def issue_rates() -> int:
+    """Instructions a second the card issues of FMA, add, min/max, rsqrt
+    and saturating FMA (a small kernel built here from
+    `RATE_KERNEL_SOURCE`): what the count of issue slots in
+    `csrc/ace_spray.cu` and the ACE bound rest on."""
+    import ctypes
+    import tempfile
+    from pathlib import Path
+
+    from libpillowfight_tpu_torch import _build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+    log(card)
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, lib = Path(tmp) / "issue_rate.cu", Path(tmp) / "issue_rate.so"
+        src.write_text(RATE_KERNEL_SOURCE)
+        flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+        subprocess.run([_build._nvcc(), *flags, "-shared", "-o", str(lib),
+                        str(src)], check=True)
+        fn = ctypes.CDLL(str(lib)).issue_rate
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, iters = sms * 8, 4096
+    out = torch.empty(blocks * 256, dtype=torch.float32, device=dev)
+    vals = torch.tensor([0.999, 1.001, 1.0], dtype=torch.float32, device=dev)
+    rates = {}
+    for op, name in enumerate(("fma", "add", "min/max", "rsqrt", "fma.sat")):
+        def run():
+            _build.check(fn(op, out.data_ptr(), vals.data_ptr(), blocks,
+                            iters, _build.stream_of(out)), "issue_rate")
+        ms = cuda_ms(run, iters=5)
+        rates[name] = blocks * 256 * 8 * iters / (ms / 1e3)
+        log(f"issue rate {name}: {rates[name]:.4e} /s "
+            f"({rates[name] / rates['fma']:.3f} of fma), {ms:.4f} ms")
+    log(json.dumps({"card": card, "issue_rates_per_s": rates}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if sys.argv[1:] == ["--issue-rates"]:
+        return issue_rates()
+    if len(sys.argv) == 3 and sys.argv[1] == "--against":
+        return against(sys.argv[2])
+    if len(sys.argv) > 1:
+        print("usage: chip_smoke.py [--against DIR | --issue-rates]",
+              file=sys.stderr)
         return 2
     import libpillowfight_tpu_torch as pt
     from libpillowfight_tpu_torch import _build
@@ -796,6 +1200,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s ({_build.library_path().name})")
+    for src in ("label_links.cu", "ace_spray.cu"):
+        for line in _build.resource_usage(src):
+            log(f"ptxas {src}: {line}")
 
     cleanup = pt.normalize_spec(pt.DOCUMENT_CLEANUP)
     edges = pt.normalize_spec(pt.EDGE_STACK)

@@ -1,5 +1,5 @@
 """PyTorch + CUDA port of libpillowfight_tpu (the unpaper cleanup chain,
-gaussian, sobel, canny, ACE and SWT).
+gaussian, sobel, canny, ACE, SWT and compare).
 
 The JAX package `libpillowfight_tpu` is the reference; this package
 mirrors its layout and is held against it: bit-identical for the cleanup
@@ -11,6 +11,7 @@ the plain PyTorch version of each kernel, a CUDA tensor launches the
 hand-written Hopper kernels in `csrc/` (built with nvcc at first use).
 """
 
+from .core.bitmap import compare
 from .ops.ace import ace
 from .ops.canny import canny
 from .ops.gaussian import gaussian
@@ -21,5 +22,5 @@ from .parallel.pipeline import (DOCUMENT_CLEANUP, EDGE_STACK,
                                 run_pipeline)
 
 __all__ = ["DOCUMENT_CLEANUP", "EDGE_STACK", "ace", "canny",
-           "compile_pipeline", "gaussian", "normalize_spec", "run_pipeline",
-           "sobel", "swt"]
+           "compare", "compile_pipeline", "gaussian", "normalize_spec",
+           "run_pipeline", "sobel", "swt"]

@@ -4,7 +4,9 @@ Each `csrc/*.cu` is compiled by its own `nvcc` process (all started
 together) for sm_90a, then linked into one shared library with a plain C
 interface, loaded with ctypes. The library's name carries a hash of the
 sources, so an edit rebuilds and a stale build is never loaded. Nothing
-outside this package's own `csrc/` is compiled.
+outside this package's own `csrc/` is compiled. What ptxas reports for
+each kernel (registers, shared memory, spills) is kept beside the library
+and read with `resource_usage`.
 
 Every C entry takes its pointers and the stream as `void*` and returns
 `cudaGetLastError()` after its launches; `check` raises if that is not 0.
@@ -27,7 +29,7 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -43,8 +45,9 @@ _SIGNATURES = {
     "pft_noise_cert": [P, P, P, I, I, I, I, I, P],
     "pft_noise_ball": [P, P, I, I, I, I, P],
     "pft_gaussian_sep": [P, P, FP, I, I, I, I, P],
-    "pft_ace_spray": [P, P, P, P, P, P, I, I, I, I, F, F, P],
-    "pft_label_links": [P, P, P, I, I, I, P],
+    "pft_ace_spray": [P, P, P, P, P, P, I, I, I, I, F, F, I, P],
+    "pft_label_scratch_bytes": [I, I],  # returns bytes, not an error code
+    "pft_label_links": [P, P, P, P, P, P, P, I, I, I, P],
     "pft_flood_sweep": [P, P, P, I, I, I, I, I, P],
 }
 
@@ -92,9 +95,10 @@ def build() -> Path:
                 [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        errors = []
+        errors, logs = [], []
         for src, p in procs:
             log, _ = p.communicate()
+            logs.append(f"== {src.name}\n{log}")
             if p.returncode != 0:
                 errors.append(f"{src.name}:\n{log}")
         if errors:
@@ -106,7 +110,27 @@ def build() -> Path:
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed:\n" + link.stdout
                                + link.stderr)
+        out.with_suffix(".log").write_text("\n".join(logs))
         os.replace(tmp_so, out)  # atomic: a concurrent loader sees all or none
+    return out
+
+
+def resource_usage(source: str) -> list[str]:
+    """What ptxas reported for the kernels of one source of the built
+    library (for example "ace_spray.cu"): a line a kernel, its mangled
+    name and its registers, shared memory and spills."""
+    log = build().with_suffix(".log")
+    if not log.exists():
+        return []
+    lines, out, name = log.read_text().splitlines(), [], None
+    inside = False
+    for line in lines:
+        if line.startswith("== "):
+            inside = line == f"== {source}"
+        elif inside and "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif inside and name and ("Used" in line or "spill" in line):
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
 
 

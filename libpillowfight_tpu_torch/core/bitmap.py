@@ -1,5 +1,6 @@
 """Batched RGBA pages and their word / gray views (port of
-`libpillowfight_tpu/core/bitmap.py`, all but `compare`).
+`libpillowfight_tpu/core/bitmap.py`, all but its host-side PIL and PPM
+helpers).
 
 Pages are uint8 RGBA [B,H,W,4]; words are the same bytes viewed as
 **int32** [B,H,W] (R = low byte). torch's uint32 has no `>>` or `>` on
@@ -10,6 +11,8 @@ alpha byte >= 128 would sign-extend into B.
 from __future__ import annotations
 
 import torch
+
+from . import constants as C
 
 
 def ensure_batched(img: torch.Tensor) -> tuple[torch.Tensor, bool]:
@@ -101,6 +104,24 @@ def normalize(matrix: torch.Tensor) -> torch.Tensor:
     hi = torch.amax(matrix, dim=(-2, -1), keepdim=True)
     span = torch.clamp(hi - lo, min=1e-12)
     return (matrix - lo) * (torch.full_like(span, 255.0) / span)
+
+
+def compare(a: torch.Tensor, b: torch.Tensor,
+            tolerance: int = C.COMPARE_DEFAULT_TOLERANCE
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pixel diff of two RGBA batches of one shape, uint8 [B,H,W,4]:
+    (pixels a page whose R, G or B differ by more than `tolerance`, int32
+    [B]; the diff bitmap, uint8 [B,H,W,4]: white where the pixels match,
+    the absolute channel difference where they do not, alpha 255)."""
+    if a.shape != b.shape or a.shape[-1] != 4:
+        raise ValueError(f"compare takes two RGBA batches of one shape, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    delta = (a[..., :3].to(torch.int16) - b[..., :3].to(torch.int16)).abs()
+    differs = (delta > tolerance).any(dim=-1)
+    n_diff = differs.sum(dim=(-2, -1), dtype=torch.int32)
+    diff = torch.full_like(a, 255)
+    diff[..., :3] = torch.where(differs[..., None], delta.to(torch.uint8), 255)
+    return n_diff, diff
 
 
 def shift2d(x: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:

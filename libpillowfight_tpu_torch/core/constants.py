@@ -1,7 +1,7 @@
 """The constants of the ported filters.
 
 A copy of `libpillowfight_tpu/core/constants.py` (the gaussian, canny,
-ACE, SWT and unpaper sections): importing the reference module runs its
+ACE, SWT, unpaper and compare sections): importing the reference module runs its
 package `__init__`, which imports jax. A test pins every value here
 equal to the reference's.
 """
@@ -63,3 +63,5 @@ MASKS_SCAN_THRESHOLD = 0.1  # strip dark-ratio below which content has ended
 BORDER_SCAN_SIZE = 5
 BORDER_SCAN_STEP = 5
 BORDER_SCAN_THRESHOLD = 5  # dark-pixel COUNT above which a strip has content
+
+COMPARE_DEFAULT_TOLERANCE = 0  # largest channel difference that still matches

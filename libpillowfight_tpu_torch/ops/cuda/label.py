@@ -9,7 +9,8 @@ Labels are int32 [B,H,W]: the least flat index y*W + x of the pixel's
 component, H*W on invalid pixels. `links` is {(dy,dx): bool [B,H,W]} over
 `OFFSETS`; links[d][b,y,x] joins (y,x) to (y+dy,x+dx). A link counts
 only between two valid pixels of the page. The result is a unique fixed
-point: the kernel finds it with a union-find, the plain version with the
+point: the kernel finds it with a union-find (tile by tile in shared
+memory, then across the tiles' borders), the plain version with the
 reference's rounds of segmented-min scans and neighbour mins.
 """
 
@@ -23,7 +24,7 @@ from . import expect, use_kernel
 
 OFFSETS = ((0, 1), (1, 0), (1, 1), (1, -1))  # the four undirected directions
 
-launches = 0  # launch count of the kernel wrapper
+launches = 0  # calls of the kernel wrapper (each three launches in a row)
 
 
 def mask_links(valid: torch.Tensor, connectivity: int = 8) -> dict:
@@ -105,30 +106,37 @@ def label_links_plain(valid: torch.Tensor, links: dict | None,
     return labels
 
 
+MAX_ROWS = 65535 * 32  # the kernel's grid: 65535 tiles of 32 rows
+
+
 def label_links_cuda(valid: torch.Tensor, links: dict | None
                      ) -> torch.Tensor:
     """The kernel. links=None labels the 8-connected components of
-    `valid` (the kernel derives those links itself). The kernel drops a
-    link that leaves the page or meets an invalid pixel, so the planes
-    go in as they are, four bits to a byte."""
+    `valid` (the kernel derives those links itself). The kernel reads the
+    four bool planes as they are and drops a link that leaves the page or
+    meets an invalid pixel, so nothing is packed or masked here: a bool,
+    contiguous plane reaches the launch without a pass over it."""
     valid = valid.to(torch.bool).contiguous()
     expect(valid, "valid", (torch.bool,), 3)
     b, h, w = valid.shape
-    if h * w >= 2 ** 31 or b > 65535:
+    if h * w >= 2 ** 31 or b > 65535 or h > MAX_ROWS:
         raise ValueError(f"valid {tuple(valid.shape)}: a page must hold "
-                         f"fewer than 2^31 pixels, a batch at most 65535 "
-                         f"pages")
-    bits = None
+                         f"fewer than 2^31 pixels in at most {MAX_ROWS} "
+                         f"rows, a batch at most 65535 pages")
+    planes = [None] * 4
     if links is not None:
-        planes = _link_planes(valid, links)
-        bits = planes[0].to(torch.uint8)
-        for k in (1, 2, 3):
-            bits |= planes[k].to(torch.uint8) << k
+        planes = [p.contiguous() for p in _link_planes(valid, links)]
+        for d, p in zip(OFFSETS, planes):
+            expect(p, f"links[{d}]", (torch.bool,), 3)
+    lib = _build.load()
     labels = torch.empty((b, h, w), dtype=torch.int32, device=valid.device)
-    _build.check(_build.load().pft_label_links(
-        valid.data_ptr(), None if bits is None else bits.data_ptr(),
-        labels.data_ptr(), b, h, w, _build.stream_of(valid)),
-        "pft_label_links")
+    scratch = torch.empty(max(b * lib.pft_label_scratch_bytes(h, w), 1),
+                          dtype=torch.uint8, device=valid.device)
+    _build.check(lib.pft_label_links(
+        valid.data_ptr(), *(None if p is None else p.data_ptr()
+                            for p in planes),
+        labels.data_ptr(), scratch.data_ptr(), b, h, w,
+        _build.stream_of(valid)), "pft_label_links")
     global launches
     launches += 1
     return labels

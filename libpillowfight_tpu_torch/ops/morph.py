@@ -1,12 +1,13 @@
-"""Flood fill, component labels and small-cluster mask (port of the
-subset of `libpillowfight_tpu/ops/morph.py` the cleanup chain, canny and
-SWT use).
+"""Flood fill, component labels, small-cluster mask and the 3 x 3
+neighbourhood maxima and minima (port of `libpillowfight_tpu/ops/morph.py`).
 
-The flood, the labels and the small-cluster mask up to k = 15 run
-through the wrappers of `ops/cuda`: the hand-written kernels for CUDA
-tensors, their plain PyTorch versions for CPU tensors. The flood and the
-labels are exact fixed points, so their results do not depend on the
-round structure, only on the connectivity.
+The 8-connected flood, the labels and the small-cluster mask up to k = 15
+run through the wrappers of `ops/cuda`: the hand-written kernels for CUDA
+tensors, their plain PyTorch versions for CPU tensors. The 4-connected
+flood, the small-cluster mask from k = 16 and the neighbourhood helpers
+are plain torch on either device, as the reference runs them outside any
+kernel. The flood and the labels are exact fixed points, so their results
+do not depend on the round structure, only on the connectivity.
 """
 
 from __future__ import annotations
@@ -14,10 +15,59 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.bitmap import shift2d
 from .cuda.flood_packed import flood_packed, lsr, pack_rows, unpack_rows
-from .cuda.flood_sweep import flood_sweep
+from .cuda.flood_sweep import _seg_or, flood_sweep
 from .cuda.label import label_links, mask_links
 from .cuda.noise import _i32, _popcount, noise_ball, small_cluster_mask_cert
+
+
+def _window3(x: torch.Tensor, fill, op, plus: bool) -> torch.Tensor:
+    """`op` over the 3 x 3 window (the plus-shaped one if `plus`) of a
+    [B,H,W] plane, `fill` outside the page."""
+    def along(t, dy, dx):
+        return op(op(shift2d(t, -dy, -dx, fill), t), shift2d(t, dy, dx, fill))
+
+    if plus:
+        return op(along(x, 0, 1), along(x, 1, 0))
+    return along(along(x, 0, 1), 1, 0)
+
+
+def _lowest(x: torch.Tensor):
+    if x.dtype == torch.bool:
+        return False
+    return float("-inf") if x.dtype.is_floating_point \
+        else torch.iinfo(x.dtype).min
+
+
+def _max_op(x: torch.Tensor):
+    return torch.logical_or if x.dtype == torch.bool else torch.maximum
+
+
+def _min_op(x: torch.Tensor):
+    return torch.logical_and if x.dtype == torch.bool else torch.minimum
+
+
+def dilate8(x: torch.Tensor) -> torch.Tensor:
+    """3 x 3 max (8-neighbourhood) of a bool, integer or float [B,H,W]
+    plane; outside the page counts as the type's lowest value."""
+    return _window3(x, _lowest(x), _max_op(x), plus=False)
+
+
+def dilate4(x: torch.Tensor) -> torch.Tensor:
+    """Plus-shaped (4-neighbourhood) max."""
+    return _window3(x, _lowest(x), _max_op(x), plus=True)
+
+
+def erode_min8(x: torch.Tensor, big) -> torch.Tensor:
+    """3 x 3 min (8-neighbourhood) of a [B,H,W] plane; outside the page
+    counts as `big`."""
+    return _window3(x, big, _min_op(x), plus=False)
+
+
+def erode_min4(x: torch.Tensor, big) -> torch.Tensor:
+    """Plus-shaped (4-neighbourhood) min, `big` outside the page."""
+    return _window3(x, big, _min_op(x), plus=True)
 
 
 def dilate_cheb(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -38,26 +88,55 @@ def packed_fits(h: int, w: int) -> bool:
         PACKED_LIMIT_BYTES
 
 
+def _flood4(seeds: torch.Tensor, mask: torch.Tensor,
+            max_iters: int | None) -> torch.Tensor:
+    """The reference's fixed point for 4-connectivity: rounds of segmented
+    OR along the rows, along the columns, then a plus-shaped dilation gated
+    by the mask, until a round changes nothing."""
+    b, h, w = mask.shape
+    r = seeds & mask
+    for _ in range(h * w + 2 if max_iters is None else max_iters):
+        new = _seg_or(mask, r, 2)
+        new = _seg_or(mask, new, 1)
+        new = (dilate4(new) & mask) | new
+        if torch.equal(new, r):
+            break
+        r = new
+    return r
+
+
 def flood_reach(seeds: torch.Tensor, mask: torch.Tensor,
                 connectivity: int = 8, max_iters: int | None = None,
                 leap: int = 1) -> torch.Tensor:
-    """All mask pixels 8-connected to a seed, bool [B,H,W] each; mask
-    pixels within Chebyshev distance `leap` count as connected.
+    """All mask pixels 4- or 8-connected to a seed, bool [B,H,W] each;
+    with 8-connectivity, mask pixels within Chebyshev distance `leap`
+    count as connected.
 
-    Dispatched as the reference dispatches on its accelerator: a page
-    that passes `packed_fits` takes the packed flood, a larger one the
-    sweep flood on byte planes. The threshold is the reference's (what
-    its packed kernel can hold on chip), not a limit of this card: both
-    routes take any page here and give the same exact result.
+    8-connected floods are dispatched as the reference dispatches on its
+    accelerator: a page that passes `packed_fits` takes the packed flood,
+    a larger one the sweep flood on byte planes. The threshold is the
+    reference's (what its packed kernel can hold on chip), not a limit of
+    this card: both routes take any page here and give the same exact
+    result.
+
+    4-connected floods run the reference's fixed point in plain torch on
+    either device. The reference runs no kernel there either, so this is
+    the port's counterpart, not a fallback. Its multigrid level (a flood of
+    the 4 x 4-coarsened page whose result seeds the full one) only saves
+    rounds; the fixed point is the same without it, and it is left out, so
+    a finite `max_iters` counts this function's own rounds.
 
     max_iters=None iterates to the true fixed point (a cap of H*W + 2
     rounds that convergence always beats)."""
-    if connectivity != 8:
-        raise ValueError(f"connectivity={connectivity}: the port floods "
-                         f"8-connected only")
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
+    if connectivity == 4 and leap != 1:
+        raise ValueError(f"leap={leap} requires 8-connectivity")
     b, h, w = mask.shape
     mask = mask.to(torch.bool)
     seeds = seeds.to(torch.bool)
+    if connectivity == 4:
+        return _flood4(seeds, mask, max_iters)
     if not packed_fits(h, w):  # both floods keep the seeds inside the mask
         return flood_sweep(seeds, mask, leap=leap, max_iters=max_iters)
     out = flood_packed(pack_rows(seeds), pack_rows(mask), h, w, leap=leap,

@@ -9,7 +9,10 @@ lines, and closes the black border into a frame, so that SWT finds
 letters on it: canny's thresholds are fractions of the page's strongest
 gradient, and on a page that is light up to its rim that is the rim
 itself (the blur and the gradient pad with zeros), twice as strong as
-any glyph's edge.
+any glyph's edge. `flood_cases` and `label_cases` are the small planes on
+which the flood kernels and the label kernel are held to their plain
+versions: the CPU tests hold the plain versions to the reference on the
+same planes.
 """
 
 from __future__ import annotations
@@ -136,4 +139,117 @@ def flood_cases(seed: int = 0) -> list:
     mask = rng.random((1, 40, 150)) < 0.4
     cases.append(("no_seeds", np.zeros_like(mask), mask, 1))
     assert tuple(c[0] for c in cases) == FLOOD_CASE_NAMES
+    return cases
+
+
+LABEL_OFFSETS = ((0, 1), (1, 0), (1, 1), (1, -1))  # as `ops.cuda.label.OFFSETS`
+LABEL_TILE_H, LABEL_TILE_W = 32, 64  # the label kernel's tile
+
+
+def _links8(valid: np.ndarray) -> dict:
+    """Every pair of valid 8-neighbours linked."""
+    links = {}
+    for dy, dx in LABEL_OFFSETS:
+        other = np.zeros_like(valid)
+        h, w = valid.shape[1:]
+        other[:, :h - dy, max(0, -dx):w - max(0, dx)] = \
+            valid[:, dy:, max(0, dx):w + min(0, dx)]
+        links[(dy, dx)] = valid & other
+    return links
+
+
+def _spiral(h: int, w: int) -> np.ndarray:
+    """A one-pixel rectangular spiral on an h x w plane, arms two pixels
+    apart, from the top left corner inwards: one 8-connected component."""
+    plane = np.zeros((h, w), bool)
+    top, bottom, left, right, start = 0, h - 1, 0, w - 1, 0
+    while top <= bottom and start <= right:
+        plane[top, start:right + 1] = True
+        plane[top:bottom + 1, right] = True
+        plane[bottom, left:right + 1] = True
+        plane[top + 2:bottom + 1, left] = True
+        start = left
+        top, bottom, left, right = top + 2, bottom - 2, left + 2, right - 2
+    return plane
+
+
+# (rows, columns) of the random planes of `label_cases`: one under, at and
+# one over the kernel's tile, and around a 4-byte and a 16-byte load
+LABEL_RANDOM = ((31, 63), (32, 64), (33, 65), (64, 128), (65, 129), (7, 3),
+                (5, 4), (9, 5), (33, 15), (34, 16), (35, 17))
+LABEL_CASE_NAMES = (tuple(f"random_h{h}_w{w}" for h, w in LABEL_RANDOM)
+                    + ("random_8conn_b3", "snake_rows", "snake_columns",
+                       "spiral", "least_index_last", "diagonals_only",
+                       "links_off_page_or_invalid", "empty", "full_8conn",
+                       "full_links", "solid_blocks_b3"))
+
+
+def label_cases(seed: int = 0) -> list:
+    """Edge cases of the component labels, as (name, valid, links) with
+    valid bool [B,H,W] and links {(dy,dx): bool [B,H,W]} over
+    `LABEL_OFFSETS` or None (8-connectivity), in the order of
+    `LABEL_CASE_NAMES`: random planes with random links at heights and
+    widths around the kernel's tile and its 4- and 16-byte loads; snakes
+    and a spiral that cross tile borders many times; a component whose
+    least index lies in the last tile it touches; links along the
+    diagonals only, across tile corners; links that leave the page or meet
+    an invalid pixel (they join nothing); an empty and a full plane; solid
+    blocks over several tiles. One to three pages, each at most 200
+    pixels a side."""
+    rng = np.random.default_rng(seed)
+    th, tw = LABEL_TILE_H, LABEL_TILE_W
+    cases = []
+    for h, w in LABEL_RANDOM:
+        valid = rng.random((2, h, w)) < 0.55
+        links = {d: v & (rng.random(valid.shape) < 0.6)
+                 for d, v in _links8(valid).items()}
+        cases.append((f"random_h{h}_w{w}", valid, links))
+    cases.append(("random_8conn_b3", rng.random((3, 66, 130)) < 0.45, None))
+
+    _, rows = _snake(2 * th + 3, 3 * tw + 5, 3, 2 * th - 1, False)
+    cases.append(("snake_rows", rows, None))
+    _, columns = _snake(2 * th + 5, 2 * tw + 9, tw - 9, 12, True)
+    cases.append(("snake_columns", columns, _links8(columns)))
+    cases.append(("spiral", _spiral(3 * th + 2, 2 * tw + 3)[None], None))
+
+    # a hook: down the right, along the bottom, up the left to the first
+    # row, so the component's least index lies in the tile reached last
+    hook = np.zeros((1, 2 * th + 8, 2 * tw + 8), bool)
+    hook[0, 5:, -3] = hook[0, -2, 2:-2] = hook[0, :, 2] = True
+    cases.append(("least_index_last", hook, None))
+
+    # stairs along both diagonals through the tile corners, linked along
+    # the diagonals only (every pixel has valid row and column neighbours)
+    diag = np.ones((1, 2 * th + 2, 2 * tw + 2), bool)
+    none = np.zeros_like(diag)
+    cases.append(("diagonals_only", diag,
+                  {(0, 1): none, (1, 0): none,
+                   (1, 1): diag.copy(), (1, -1): diag.copy()}))
+
+    # every link bit set, also on invalid pixels and on the page's last
+    # row and columns: page 0 a checkerboard, where only the diagonal
+    # links join valid pixels, page 1 with an invalid row and two invalid
+    # columns along the tile's edges
+    valid = np.ones((2, th + 1, tw + 1), bool)
+    valid[0, ::2, 1::2] = valid[0, 1::2, ::2] = False
+    valid[1, :, tw - 1:tw + 1] = False
+    valid[1, th - 1, :] = False
+    every = np.ones_like(valid)
+    cases.append(("links_off_page_or_invalid", valid,
+                  {d: every.copy() for d in LABEL_OFFSETS}))
+
+    empty = np.zeros((1, th + 1, tw + 4), bool)
+    cases.append(("empty", empty, None))
+    cases.append(("full_8conn", np.ones((1, 2 * th + 1, 2 * tw + 4), bool),
+                  None))
+    full = np.ones((1, 2 * th, 2 * tw), bool)
+    cases.append(("full_links", full, _links8(full)))
+
+    blocks = np.zeros((3, 3 * th + 1, 3 * tw), bool)
+    blocks[0, 10:th + 20, 20:2 * tw + 30] = True
+    blocks[1, :, tw - 2:tw + 2] = blocks[1, th - 1:th + 1, :] = True
+    blocks[2, 2 * th:, :] = blocks[2, :, 2 * tw + 8:] = True
+    blocks[2, th, tw] = True  # a pixel on its own
+    cases.append(("solid_blocks_b3", blocks, None))
+    assert tuple(c[0] for c in cases) == LABEL_CASE_NAMES
     return cases
