@@ -14,7 +14,9 @@
    rounding (rsqrtf). Beside each time it prints the kernel's bound (the
    least time the card could take: compulsory bytes over the memory rate,
    or operations over the f32 rate) and, where one PyTorch call computes
-   the same function, that call's time. Both floods are also held to
+   the same function, that call's time, and each call three ways: the
+   kernel's device time (the profiler's rows of its device functions),
+   the wrapper's other device operations, its host time. Both floods are also held to
    their plain versions on the shared edge cases of
    `utils.pages.flood_cases` (heights around a 32-row band, widths around
    a strip, leaps 1 to 33, snakes, a solid ring, no seeds) and on random
@@ -24,8 +26,13 @@
    links, links off the page), bit-identical; the ACE spray's measured
    error at a default, a steep and a shallow slope for 1, 100 and 1000
    samples, in both forms of its channel term; `flood_reach` 4-connected
-   and `compare` on the card against the same call on the CPU. A kernel
-   whose time reads under its bound fails the run;
+   and `compare` on the card against the same call on the CPU; the blur
+   bit-identical on the RGB planes of A4 x 2, the gray planes of A4 600
+   dpi x 2, at 1, 3, 21 and 97 taps and on `utils.pages.blur_cases` (both
+   of its instances launched); the line counts bit-identical on the dark
+   planes at 300 and 600 dpi, an all-dark and an empty plane and on
+   `utils.pages.line_count_cases`. A kernel whose event time or device
+   time reads under its bound fails the run;
 5. drives six paths through the port's run_pipeline on the card, each
    with every launch count set to 0 just before and read just after, and
    checks that each launched its kernels:
@@ -52,24 +59,30 @@
    and the device's idle share during swt; the packed flood alone at
    A4 x 16 and the sweep flood alone at A4 600 dpi x 4, the shapes those
    paths give them;
-7. prints the kernels line (JSON), then the result line (JSON), last.
+7. prints the kernels line (JSON; beside the contract's keys each kernel
+   has `kernel_ms`, `other_device_ms` and `host_ms`), then the result line
+   (JSON), last.
 
 Any failed phase raises, and the exit code is then non-zero.
 
 With `--against DIR`, where DIR holds another tree of this repository (for
 example `git archive <parent> | tar -x -C .scratch/parent`), the script
 loads that tree's package beside this one in one process and takes the
-two in turns (other, this, this, other) on the same tensors: the label
-kernel and the ACE spray at A4 x 2, with their outputs compared bit for
-bit, the device time of each call split by kernel name, and the five
-timed paths. It prints one JSON object and writes it to
+two in turns (other, this, this, other) on the same tensors: the blur
+(gray and RGB planes of A4 x 2, gray planes of A4 600 dpi x 2) and the
+line counts (dark planes at 300 and 600 dpi), each also a call three
+ways; the label kernel and the ACE spray at A4 x 2, with their outputs
+compared bit for bit, the device time of each call split by kernel name;
+and the five timed paths. It prints one JSON object and writes it to
 `chiprun_out/against.json`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -376,14 +389,132 @@ def check_label_cases(dev) -> None:
         f"plain (components: " + ", ".join(notes) + ")")
 
 
+def blur_planes_rgb(words) -> torch.Tensor:
+    """The f32 RGB planes [3B,H,W] the `gaussian` filter blurs."""
+    from libpillowfight_tpu_torch.core.bitmap import words_to_pages
+
+    pages = words_to_pages(words)
+    b, h, w, _ = pages.shape
+    return (pages[..., :3].permute(0, 3, 1, 2).to(torch.float32)
+            .reshape(b * 3, h, w).contiguous())
+
+
+def check_blur_cases(gray, rgb, gray600) -> None:
+    """The blur kernel against its plain version, bit-identical: on the
+    gray planes of A4 x 2 (canny's) and of A4 600 dpi x 2, on the RGB
+    planes of A4 x 2 (the `gaussian` filter's), at 1, 3, 21 and 97 taps on
+    the gray planes, and on the shared edge cases of
+    `utils.pages.blur_cases`; both instances must launch."""
+    from libpillowfight_tpu_torch.ops.conv import gaussian_taps
+    from libpillowfight_tpu_torch.ops.cuda import gaussian as gs
+    from libpillowfight_tpu_torch.utils.pages import blur_cases, offset_view
+
+    before = dict(gs.instance_launches)
+    runs = [("gray A4 x 2", gray, gaussian_taps(2.0, 5)),
+            ("RGB planes A4 x 2", rgb, gaussian_taps(2.0, 5)),
+            ("gray A4 600 dpi x 2", gray600, gaussian_taps(2.0, 5))]
+    for sigma, nb in ((2.0, 0), (0.8, 1), (8.0, 6)):
+        taps = gaussian_taps(sigma, nb)
+        runs.append((f"gray A4 x 2, {len(taps)} taps", gray, taps))
+    for name, planes, taps, offset in blur_cases():
+        planes = torch.from_numpy(planes).to(gray.device)
+        if offset:
+            planes = offset_view(planes, offset)
+        runs.append((f"case {name}", planes, taps))
+    notes = []
+    for what, planes, taps in runs:
+        was = dict(gs.instance_launches)
+        got = gs.gaussian_sep_cuda(planes, taps)
+        want = gs.gaussian_sep_plain(planes, taps)
+        if not torch.equal(got, want):
+            n = int((got != want).sum())
+            raise AssertionError(f"gaussian_sep differs from plain on {what} "
+                                 f"({n} pixels)")
+        which = [k for k in was if gs.instance_launches[k] > was[k]]
+        if which != [gs.kernel_instance(taps)]:
+            raise AssertionError(f"gaussian_sep on {what}: instance {which} "
+                                 f"launched, {gs.kernel_instance(taps)} "
+                                 f"expected")
+        notes.append(f"{what} ({which[0]})")
+        del got, want
+    launched = {k: gs.instance_launches[k] - before[k] for k in before}
+    if min(launched.values()) == 0:
+        raise AssertionError(f"gaussian_sep instances launched: {launched}")
+    log(f"kernel gaussian_sep bit-identical to plain on {len(notes)} inputs, "
+        f"launches by instance {launched}: " + "; ".join(notes))
+
+
+def check_line_count_cases(dark, dark600) -> None:
+    """The line-count kernel against its plain version, bit-identical: on
+    the chain's dark planes at A4 300 and 600 dpi x 2, an all-dark and an
+    empty A4 x 2 plane, and the shared edge cases of
+    `utils.pages.line_count_cases`."""
+    from libpillowfight_tpu_torch.ops.cuda import linecount as lc
+    from libpillowfight_tpu_torch.utils.pages import (line_count_cases,
+                                                      offset_view)
+
+    runs = [("dark A4 x 2", dark), ("dark A4 600 dpi x 2", dark600),
+            ("all-dark A4 x 2", torch.ones_like(dark)),
+            ("empty A4 x 2", torch.zeros_like(dark))]
+    for name, plane, offset in line_count_cases():
+        plane = torch.from_numpy(plane).to(dark.device)
+        if offset:
+            plane = offset_view(plane, offset)
+        runs.append((f"case {name}", plane))
+    for what, plane in runs:
+        got, want = lc.line_counts_cuda(plane), lc.line_counts_plain(plane)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"line_counts differs from plain on {what}")
+    log(f"kernel line_counts bit-identical to plain on {len(runs)} inputs: "
+        + ", ".join(w for w, _ in runs))
+
+
+def three_way(fn, kernels: tuple, iters: int = 200) -> dict:
+    """One wrapper call three ways: its kernel's device time (the
+    profiler's rows that name one of the device functions `kernels`), the
+    device time of the wrapper's other operations, and the host time of a
+    call (`time.perf_counter` over `iters` calls with no sync between; a
+    wrapper that waits for its kernel, or a queue that fills, makes it
+    read device time too), ms."""
+    split = device_split(fn)
+    kernel = sum(v for k, v in split.items()
+                 if any(re.search(rf"(?<!\w){n}(?!\w)", k) for n in kernels))
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return {"kernel_ms": round(kernel, 5),
+            "other_device_ms": round(sum(split.values()) - kernel, 5),
+            "host_ms": round(host, 5), "by_name": split}
+
+
+BLUR_KERNELS = ("blur_strip_kernel", "blur_tile_kernel", "gaussian_sep_kernel")
+LINE_COUNT_KERNELS = ("line_counts_kernel",)
+DEVICE_FUNCTIONS = {  # name in KERNELS -> the __global__ functions it launches
+    "line_counts": LINE_COUNT_KERNELS,
+    "pack_rows": ("pack_rows_kernel",),
+    "unpack_rows": ("unpack_rows_kernel",),
+    "flood_round": ("flood_kernel",),
+    "noise_cert": ("noise_ball_kernel",),
+    "noise_ball": ("noise_ball_kernel",),
+    "gaussian_sep": BLUR_KERNELS,
+    "ace_spray": ("ace_spray_kernel",),
+    "label_links": ("tile_kernel", "border_kernel", "flatten_kernel"),
+    "flood_sweep": ("sweep_kernel",),
+}
+
+
 def check_spray_errors(words2) -> None:
     """The ACE spray kernel's error against its plain version at A4 x 2,
     for 1, 100 and 1000 samples at the default, a steep and a shallow
     slope, in both forms of the channel term; every one inside the bar."""
     from libpillowfight_tpu_torch.core import constants as C
     from libpillowfight_tpu_torch.core.bitmap import words_to_pages
-    from libpillowfight_tpu_torch.ops import ace as tace
     from libpillowfight_tpu_torch.ops.cuda import ace as spray
+    tace = importlib.import_module("libpillowfight_tpu_torch.ops.ace")
 
     pages = words_to_pages(words2)
     b, h, w, _ = pages.shape
@@ -461,7 +592,6 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
 
     from libpillowfight_tpu_torch.core import constants as C
     from libpillowfight_tpu_torch.core.bitmap import words_to_gray, words_to_pages
-    from libpillowfight_tpu_torch.ops import ace as tace
     from libpillowfight_tpu_torch.ops.conv import gaussian_taps
     from libpillowfight_tpu_torch.ops.cuda import ace as spray
     from libpillowfight_tpu_torch.ops.cuda import flood_packed as fp
@@ -472,6 +602,7 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
     from libpillowfight_tpu_torch.ops.cuda import noise
     from libpillowfight_tpu_torch.ops.unpaper.common import (dark_mask,
                                                              nonwhite_mask)
+    tace = importlib.import_module("libpillowfight_tpu_torch.ops.ace")
 
     b, h, w = words2.shape
     gray = words_to_gray(words2)  # canny's gray plane of the same pages
@@ -487,7 +618,8 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
     planar, sval = tace.spray_inputs(words_to_pages(words2), sy, sx)
     slope, limit = C.ACE_DEFAULT_SLOPE, C.ACE_DEFAULT_LIMIT
     valid, links = swt2["valid"], swt2["links"]
-    seeds600, dark600 = blackfilter_flood_inputs(words_to_gray(words600))
+    gray600 = words_to_gray(words600)
+    seeds600, dark600 = blackfilter_flood_inputs(gray600)
     h6, w6 = dark600.shape[1:]
 
     def exact(got, want):
@@ -501,9 +633,15 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
         return max(err_n, err_i), ok
 
     def blur_library():
+        # f32 convolutions: cuDNN would take TF32 by default
         r = len(taps) // 2
-        rows = F.conv2d(gray[:, None], tap_row, padding=(0, r))
-        return F.conv2d(rows, tap_row.transpose(2, 3), padding=(r, 0))
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            rows = F.conv2d(gray[:, None], tap_row, padding=(0, r))
+            return F.conv2d(rows, tap_row.transpose(2, 3), padding=(r, 0))
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
 
     # name -> (kernel, plain, bar, inputs, f32 operations, one PyTorch
     # call for the same function or None, special-function results)
@@ -530,7 +668,8 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
                        [nonwhite], 0, None),
         "gaussian_sep": (lambda: gs.gaussian_sep_cuda(gray, taps),
                          lambda: gs.gaussian_sep_plain(gray, taps), exact,
-                         [gray], 4 * len(taps) * gray.numel(), blur_library),
+                         [gray], 4 * (2 * len(taps) - 1) * gray.numel(),
+                         blur_library),
         "ace_spray": (
             lambda: spray.ace_spray_cuda(planar, sy, sx, sval, slope, limit),
             lambda: spray.ace_spray_plain(planar, sy, sx, sval, slope, limit),
@@ -554,20 +693,33 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
             raise AssertionError(f"{name}: kernel differs from plain, "
                                  f"max |diff| {err}")
         outputs = got if isinstance(got, tuple) else (got,)
+        split = three_way(kernel, DEVICE_FUNCTIONS[name], iters=50)
         out[name] = {
             "max_abs_err": err, "ms": cuda_ms(kernel),
             "plain_ms": cuda_ms(plain, iters=2),
             **bound(nbytes(*inputs, *outputs), n_ops, *n_sfu),
-            "library_ms": cuda_ms(library) if library else None}
+            "library_ms": cuda_ms(library) if library else None,
+            **{k: split[k] for k in ("kernel_ms", "other_device_ms",
+                                     "host_ms")}}
         r = out[name]
-        if r["ms"] < r["bound_ms"]:
-            raise AssertionError(f"{name}: {r['ms']} ms reads under its "
-                                 f"bound of {r['bound_ms']} ms")
+        for what in ("ms", "kernel_ms"):
+            if r[what] < r["bound_ms"]:
+                raise AssertionError(f"{name}: {what} {r[what]} reads under "
+                                     f"its bound of {r['bound_ms']} ms")
         log(f"kernel {name}: max |diff| {err}; {r['ms']:.4f} ms vs plain "
             f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}; one PyTorch call: "
-            + (f"{r['library_ms']:.4f} ms" if library else "none"))
+            + (f"{r['library_ms']:.4f} ms" if library else "none")
+            + (" (two F.conv2d, TF32 off)" if name == "gaussian_sep" else "")
+            + f"; a call three ways: kernel {r['kernel_ms']:.5f} ms of "
+            f"device time, the wrapper's other device operations "
+            f"{r['other_device_ms']:.5f} ms, host {r['host_ms']:.5f} ms; "
+            f"device ms by name {split['by_name']}")
         del got, want, outputs
+
+    check_blur_cases(gray, blur_planes_rgb(words2), gray600)
+    del gray600
+    check_line_count_cases(dark, dark600)
 
     # the noisefilter flood (leap 1, from certificates) too
     got = fp.flood_packed_cuda(cert_w, nonwhite_w, h, w, leap=1)
@@ -691,7 +843,9 @@ def _counters():
 def launch_counts() -> dict:
     spray, fp, gs, lc, noise, lb, fs = _counters()
     return {"line_counts": lc.launches, **fp.launches, **noise.launches,
-            "gaussian_sep": gs.launches, "ace_spray": spray.launches,
+            "gaussian_sep": gs.launches,
+            **{f"gaussian_sep[{k}]": v for k, v in gs.instance_launches.items()},
+            "ace_spray": spray.launches,
             "label_links": lb.launches, "flood_sweep": fs.launches}
 
 
@@ -699,7 +853,7 @@ def reset_launch_counts() -> None:
     spray, fp, gs, lc, noise, lb, fs = _counters()
     lc.launches = gs.launches = spray.launches = 0
     lb.launches = fs.launches = 0
-    for d in (fp.launches, noise.launches):
+    for d in (fp.launches, noise.launches, gs.instance_launches):
         for k in d:
             d[k] = 0
 
@@ -781,8 +935,8 @@ def check_ace(out_gpu, words2) -> None:
     the samples the seed draws."""
     from libpillowfight_tpu_torch.core import constants as C
     from libpillowfight_tpu_torch.core.bitmap import words_to_pages
-    from libpillowfight_tpu_torch.ops import ace as tace
     from libpillowfight_tpu_torch.ops.cuda import ace as spray
+    tace = importlib.import_module("libpillowfight_tpu_torch.ops.ace")
 
     pages = words_to_pages(words2)
     b, h, w, _ = pages.shape
@@ -946,7 +1100,7 @@ def device_split(fn, iters: int = 5) -> dict:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = (getattr(e, "self_device_time_total", 0)
                   or getattr(e, "self_cuda_time_total", 0))
-            split[e.key[:70]] = round(us / 1e3 / iters, 4)
+            split[e.key[:70]] = round(us / 1e3 / iters, 5)
     return split
 
 
@@ -961,22 +1115,25 @@ def in_turns(other, this, iters: int = 20) -> dict:
 
 
 def against(root: str) -> int:
-    """This tree's label kernel, ACE spray and timed paths against those
-    of the tree at `root`, in turns in one process (see the module's
-    docstring)."""
-    import importlib
+    """This tree's blur, line counts, label kernel, ACE spray and timed
+    paths against those of the tree at `root`, in turns in one process
+    (see the module's docstring)."""
     import os
 
     import libpillowfight_tpu_torch as pt
     from libpillowfight_tpu_torch.core import constants as C
     from libpillowfight_tpu_torch.core.bitmap import (words_to_gray,
                                                       words_to_pages)
-    from libpillowfight_tpu_torch.ops import ace as tace
+    from libpillowfight_tpu_torch.ops.conv import gaussian_taps
     from libpillowfight_tpu_torch.ops.cuda import ace as spray
+    from libpillowfight_tpu_torch.ops.cuda import gaussian as gs
     from libpillowfight_tpu_torch.ops.cuda import label as lb
-    from libpillowfight_tpu_torch.ops.unpaper.common import nonwhite_mask
+    from libpillowfight_tpu_torch.ops.cuda import linecount as lc
+    from libpillowfight_tpu_torch.ops.unpaper.common import (dark_mask,
+                                                             nonwhite_mask)
     from libpillowfight_tpu_torch.utils.pages import (synthetic_pages,
                                                       text_pages)
+    tace = importlib.import_module("libpillowfight_tpu_torch.ops.ace")
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -990,8 +1147,51 @@ def against(root: str) -> int:
     pt._build.load()
     result = {"card": card, "other": root}
 
-    # the label kernel: SWT's planes, then the non-white plane
+    # the blur and the line counts on the same tensors
+    o_gs = importlib.import_module("pft_other.ops.cuda.gaussian")
+    o_lc = importlib.import_module("pft_other.ops.cuda.linecount")
     words2 = words_on(synthetic_pages(CHECK_BATCH, A4_H, A4_W), dev)
+    gray = words_to_gray(words2)
+    taps = gaussian_taps(C.CANNY_GAUSSIAN_SIGMA, C.CANNY_GAUSSIAN_NB_STDDEV)
+    blur_inputs = {"gray A4 x 2": gray, "RGB planes A4 x 2":
+                   blur_planes_rgb(words2)}
+    words600 = words_on(synthetic_pages(CHECK_BATCH, A4_600_H, A4_600_W), dev)
+    gray600 = words_to_gray(words600)
+    blur_inputs["gray A4 600 dpi x 2"] = gray600
+    line_inputs = {"dark A4 x 2": dark_mask(gray),
+                   "dark A4 600 dpi x 2": dark_mask(gray600)}
+    del words600
+    pairs = [("gaussian_sep", what, x, BLUR_KERNELS,
+              lambda x=x: o_gs.gaussian_sep_cuda(x, taps),
+              lambda x=x: gs.gaussian_sep_cuda(x, taps))
+             for what, x in blur_inputs.items()]
+    pairs += [("line_counts", what, x, LINE_COUNT_KERNELS,
+               lambda x=x: o_lc.line_counts_cuda(x),
+               lambda x=x: lc.line_counts_cuda(x))
+              for what, x in line_inputs.items()]
+    for name, what, x, names, was, now in pairs:
+        a, b = was(), now()
+        a, b = (a if isinstance(a, tuple) else (a,),
+                b if isinstance(b, tuple) else (b,))
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            raise AssertionError(f"{name} ({what}): the two trees differ")
+        key = f"{name}, {what}"
+        result[key] = {**in_turns(was, now),
+                       "split other": three_way(was, names),
+                       "split this": three_way(now, names)}
+        r = result[key]
+        log(f"{name} {what}: bit-identical to the other tree's; ms "
+            f"{ {k: r[k] for k in ('other', 'this')} }; kernel / other "
+            f"device / host ms a call: other "
+            f"{r['split other']['kernel_ms']} / "
+            f"{r['split other']['other_device_ms']} / "
+            f"{r['split other']['host_ms']}, this "
+            f"{r['split this']['kernel_ms']} / "
+            f"{r['split this']['other_device_ms']} / "
+            f"{r['split this']['host_ms']}")
+    del pairs, blur_inputs, line_inputs, gray, gray600
+
+    # the label kernel: SWT's planes, then the non-white plane
     swt2 = swt_stages(words_on(text_pages(CHECK_BATCH, A4_H, A4_W), dev))
     valid, links = swt2["valid"], swt2["links"]
     del swt2
@@ -1105,6 +1305,7 @@ __global__ void chains(float* out, const float* in, int iters) {
       if (OP == 2 && i % 2 == 1) asm volatile("min.f32 %0, %0, %1;" : "+f"(x[j]) : "f"(b));
       if (OP == 3) asm volatile("rsqrt.approx.ftz.f32 %0, %0;" : "+f"(x[j]));
       if (OP == 4) asm volatile("fma.rn.sat.f32 %0, %0, %1, %2;" : "+f"(x[j]) : "f"(a), "f"(b));
+      if (OP == 5) asm volatile("mul.rn.f32 %0, %0, %1;" : "+f"(x[j]) : "f"(a));
     }
   }
   float sum = 0;
@@ -1122,16 +1323,18 @@ extern "C" int issue_rate(int op, void* out, const void* in, int blocks,
   if (op == 2) chains<2><<<blocks, 256, 0, s>>>(o, i, iters);
   if (op == 3) chains<3><<<blocks, 256, 0, s>>>(o, i, iters);
   if (op == 4) chains<4><<<blocks, 256, 0, s>>>(o, i, iters);
+  if (op == 5) chains<5><<<blocks, 256, 0, s>>>(o, i, iters);
   return (int)cudaGetLastError();
 }
 """
 
 
 def issue_rates() -> int:
-    """Instructions a second the card issues of FMA, add, min/max, rsqrt
-    and saturating FMA (a small kernel built here from
+    """Instructions a second the card issues of FMA, add, min/max, rsqrt,
+    saturating FMA and multiply (a small kernel built here from
     `RATE_KERNEL_SOURCE`): what the count of issue slots in
-    `csrc/ace_spray.cu` and the ACE bound rest on."""
+    `csrc/ace_spray.cu`, the ACE bound and the blur's bound (a multiply
+    and an add a tap, no FMA) rest on."""
     import ctypes
     import tempfile
     from pathlib import Path
@@ -1157,7 +1360,8 @@ def issue_rates() -> int:
     out = torch.empty(blocks * 256, dtype=torch.float32, device=dev)
     vals = torch.tensor([0.999, 1.001, 1.0], dtype=torch.float32, device=dev)
     rates = {}
-    for op, name in enumerate(("fma", "add", "min/max", "rsqrt", "fma.sat")):
+    for op, name in enumerate(("fma", "add", "min/max", "rsqrt", "fma.sat",
+                               "mul")):
         def run():
             _build.check(fn(op, out.data_ptr(), vals.data_ptr(), blocks,
                             iters, _build.stream_of(out)), "issue_rate")
@@ -1200,7 +1404,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s ({_build.library_path().name})")
-    for src in ("label_links.cu", "ace_spray.cu"):
+    for src in ("gaussian_sep.cu", "linecount.cu", "label_links.cu",
+                "ace_spray.cu"):
         for line in _build.resource_usage(src):
             log(f"ptxas {src}: {line}")
 
@@ -1238,7 +1443,8 @@ def main() -> int:
                  "noise_cert"])
     check_chain(out, words2_cpu, cleanup, "cleanup chain")
     out = drive(edges, "edge stack",
-                ["gaussian_sep", "pack_rows", "flood_round", "unpack_rows"])
+                ["gaussian_sep", "gaussian_sep[hw10]", "pack_rows",
+                 "flood_round", "unpack_rows"])
     check_edges(out, words2_cpu, edges)
     out = drive(ace_spec, "ace", ["ace_spray"])
     check_ace(out, words2)
@@ -1247,8 +1453,8 @@ def main() -> int:
                  "noise_ball"])
     check_chain(out, words2_cpu, cleanup_k1, "cleanup chain k=1")
     out = drive(swt_spec, "swt",
-                ["gaussian_sep", "pack_rows", "flood_round", "unpack_rows",
-                 "label_links"], text2)
+                ["gaussian_sep", "gaussian_sep[hw10]", "pack_rows",
+                 "flood_round", "unpack_rows", "label_links"], text2)
     check_swt(out, text2, swt2, swt_spec,
               words_on(text_pages(1, *SWT_SMALL), dev))
     del swt2

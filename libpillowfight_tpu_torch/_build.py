@@ -35,16 +35,17 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 FP = ctypes.POINTER(ctypes.c_float)  # a host array of floats
+IP = ctypes.POINTER(ctypes.c_int)  # a host int the entry writes
 # C signature of every entry: name -> argument types (return type int)
 _SIGNATURES = {
-    "pft_line_counts": [P, P, P, I, I, I, P],
+    "pft_line_counts": [P, P, I, I, I, P],
     "pft_pack_rows": [P, P, I, I, I, P],
     "pft_unpack_rows": [P, P, I, I, I, P],
     "pft_flood_packed_smem": [I, I],  # returns bytes, not an error code
     "pft_flood_packed": [P, P, P, P, P, I, I, I, I, I, P],
     "pft_noise_cert": [P, P, P, I, I, I, I, I, P],
     "pft_noise_ball": [P, P, I, I, I, I, P],
-    "pft_gaussian_sep": [P, P, FP, I, I, I, I, P],
+    "pft_gaussian_sep": [P, P, FP, I, I, I, I, IP, P],
     "pft_ace_spray": [P, P, P, P, P, P, I, I, I, I, F, F, I, P],
     "pft_label_scratch_bytes": [I, I],  # returns bytes, not an error code
     "pft_label_links": [P, P, P, P, P, P, P, I, I, I, P],

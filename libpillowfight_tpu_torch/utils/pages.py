@@ -9,15 +9,17 @@ lines, and closes the black border into a frame, so that SWT finds
 letters on it: canny's thresholds are fractions of the page's strongest
 gradient, and on a page that is light up to its rim that is the rim
 itself (the blur and the gradient pad with zeros), twice as strong as
-any glyph's edge. `flood_cases` and `label_cases` are the small planes on
-which the flood kernels and the label kernel are held to their plain
-versions: the CPU tests hold the plain versions to the reference on the
-same planes.
+any glyph's edge. `flood_cases`, `label_cases`, `blur_cases` and
+`line_count_cases` are the small planes on which the kernels are held to
+their plain versions on the card: the CPU tests hold the plain versions
+to the reference on the same planes.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..ops.conv import gaussian_taps
 
 
 def synthetic_pages(b: int, h: int, w: int, seed: int = 0) -> np.ndarray:
@@ -252,4 +254,97 @@ def label_cases(seed: int = 0) -> list:
     blocks[2, th, tw] = True  # a pixel on its own
     cases.append(("solid_blocks_b3", blocks, None))
     assert tuple(c[0] for c in cases) == LABEL_CASE_NAMES
+    return cases
+
+
+def offset_view(t, offset: int):
+    """A contiguous copy of tensor t that starts `offset` elements into
+    its buffer: with an odd offset its data pointer is not 16-byte
+    aligned, as a view such as `plane[1:]` of an odd-sized plane."""
+    buf = t.new_empty(t.numel() + offset)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# (name, N, H, W, sigma, nb_stddev) of `blur_cases`: the 21 taps of every
+# path (sigma 2, 5 stddev) at heights around a group of 21 rows and the
+# generic tile's 32, widths around a 16-byte load, the 256-column strip
+# and the generic tile's 128, planes smaller than the 10-px halo, N = 1
+# and 3 x 2 (the RGB planes of 2 pages); 1, 3 and 97 taps (the generic
+# instance), and 49 taps of which the outer ones are 0 in f32 and the
+# others normal floats (XLA's CPU fold flushes a subnormal tap to 0)
+BLUR_SHAPES = (("h1_w1", 1, 1, 1, 2.0, 5), ("h5_w7", 1, 5, 7, 2.0, 5),
+               ("h21_w15", 2, 21, 15, 2.0, 5), ("h22_w16", 1, 22, 16, 2.0, 5),
+               ("h20_w17", 1, 20, 17, 2.0, 5),
+               ("h43_w255", 1, 43, 255, 2.0, 5),
+               ("h42_w256", 1, 42, 256, 2.0, 5),
+               ("h33_w257_n6", 6, 33, 257, 2.0, 5),
+               ("h70_w258", 1, 70, 258, 2.0, 5),
+               ("h250_w300", 2, 250, 300, 2.0, 5),
+               ("h40_w60_1tap", 2, 40, 60, 2.0, 0),
+               ("h31_w129_3taps", 1, 31, 129, 0.8, 1),
+               ("h33_w127_97taps", 1, 33, 127, 8.0, 6),
+               ("h64_w130_zero_taps", 1, 64, 130, 0.4, 60))
+BLUR_CASE_NAMES = (tuple(c[0] for c in BLUR_SHAPES)
+                   + ("inf_pixel", "inf_pixel_zero_taps", "unaligned_view"))
+
+
+def blur_cases(seed: int = 0) -> list:
+    """Edge cases of the separable blur, as (name, planes f32 [N,H,W] in
+    [0, 255], taps, offset) in the order of `BLUR_CASE_NAMES`: the shapes
+    and taps of `BLUR_SHAPES`, a plane with one +inf pixel under 21 taps
+    and under taps with zeros (a tap of 0 must be skipped, not folded as
+    0 x inf), and a view whose data pointer is not 16-byte aligned
+    (`offset`: hand the planes to the kernel through `offset_view`)."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for name, n, h, w, sigma, nb in BLUR_SHAPES:
+        planes = (rng.random((n, h, w)) * 255).astype(np.float32)
+        cases.append((name, planes, gaussian_taps(sigma, nb), 0))
+    # the shape of h42_w256 again: a reference that compiles a shape once
+    # (XLA op by op) takes these at little cost
+    for name, sigma, nb in (("inf_pixel", 2.0, 5),
+                            ("inf_pixel_zero_taps", 0.4, 60)):
+        planes = (rng.random((1, 42, 256)) * 255).astype(np.float32)
+        planes[0, 20, 40] = np.inf
+        cases.append((name, planes, gaussian_taps(sigma, nb), 0))
+    planes = (rng.random((1, 42, 256)) * 255).astype(np.float32)
+    cases.append(("unaligned_view", planes, gaussian_taps(2.0, 5), 1))
+    assert tuple(c[0] for c in cases) == BLUR_CASE_NAMES
+    return cases
+
+
+# (name, B, H, W) of the random planes of `line_count_cases`: heights
+# around the kernel's 128-row band, widths around a 16-byte load and its
+# 512-column chunk, B = 1 and 3 x 2
+LINE_COUNT_SHAPES = (("h1_w1", 1, 1, 1), ("h127_w15", 2, 127, 15),
+                     ("h128_w16", 1, 128, 16), ("h129_w17", 1, 129, 17),
+                     ("h3_w511", 1, 3, 511), ("h40_w512", 1, 40, 512),
+                     ("h130_w513_b6", 6, 130, 513))
+LINE_COUNT_CASE_NAMES = (tuple(c[0] for c in LINE_COUNT_SHAPES)
+                         + ("all_dark_h300_w48", "all_dark_h300_w37",
+                            "empty", "uint8_values", "unaligned_view"))
+
+
+def line_count_cases(seed: int = 0) -> list:
+    """Edge cases of the line counts, as (name, plane [B,H,W] bool or
+    uint8, offset) in the order of `LINE_COUNT_CASE_NAMES`: random bool
+    planes of `LINE_COUNT_SHAPES`; all-dark planes of 300 rows (more
+    than a byte counter holds) on the 16-byte and the byte path; an empty
+    plane; a uint8 plane of values 0 to 255 (each non-zero byte counts
+    1); a view whose data pointer is not 16-byte aligned (`offset`: hand
+    the plane to the kernel through `offset_view`)."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for name, b, h, w in LINE_COUNT_SHAPES:
+        cases.append((name, rng.random((b, h, w)) < 0.4, 0))
+    cases.append(("all_dark_h300_w48", np.ones((1, 300, 48), bool), 0))
+    cases.append(("all_dark_h300_w37", np.ones((2, 300, 37), bool), 0))
+    cases.append(("empty", np.zeros((1, 70, 600), bool), 0))
+    values = rng.integers(0, 256, (2, 60, 80), dtype=np.uint8)
+    values[:, ::3] = 0
+    cases.append(("uint8_values", values, 0))
+    cases.append(("unaligned_view", rng.random((2, 33, 64)) < 0.5, 1))
+    assert tuple(c[0] for c in cases) == LINE_COUNT_CASE_NAMES
     return cases

@@ -18,10 +18,10 @@ import pytest
 import torch
 
 from libpillowfight_tpu.ops.pallas.ace_kernel import ace_spray_pallas
-from libpillowfight_tpu_torch.ops import ace as tace
 from libpillowfight_tpu_torch.ops.cuda import ace as tspray
 
 jace = importlib.import_module("libpillowfight_tpu.ops.ace")
+tace = importlib.import_module("libpillowfight_tpu_torch.ops.ace")
 
 SLOPE, LIMIT = 10.0, 1000.0
 

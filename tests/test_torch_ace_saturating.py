@@ -5,14 +5,17 @@ kernel in interpret mode, within the bar the kernel itself is held to on
 the card (`ACE_SPRAY_RTOL` of the largest possible magnitude of each
 output)."""
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from libpillowfight_tpu.ops.pallas.ace_kernel import ace_spray_pallas
-from libpillowfight_tpu_torch.ops import ace as tace
 from libpillowfight_tpu_torch.ops.cuda import ace as tspray
+
+tace = importlib.import_module("libpillowfight_tpu_torch.ops.ace")
 
 torch.set_num_threads(1)
 

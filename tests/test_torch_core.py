@@ -168,6 +168,28 @@ def test_cuda_path_never_takes_cpu_tensors():
         tflood.flood_packed(words, words.to("meta"), 40, 33)
 
 
+def test_c_entries_match_their_ctypes_signatures():
+    """Every `extern "C"` entry of csrc/ is bound with the argument types
+    of its C declaration, and nothing else is bound: a mismatch would
+    otherwise show only when the library is loaded on a card."""
+    import re
+
+    from libpillowfight_tpu_torch import _build
+
+    ctype = {"void*": _build.P, "int": _build.I, "float": _build.F,
+             "float*": _build.FP, "int*": _build.IP}
+    declared = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                       src.read_text()):
+            types = []
+            for param in params.split(","):
+                *ty, var = param.replace("const", "").split()
+                types.append(ctype["".join(ty) + "*" * var.count("*")])
+            declared[name] = types
+    assert declared == _build._SIGNATURES
+
+
 def test_synthetic_pages_equal_bench_pages():
     """The port's page generator is byte-identical to the one the JAX
     package's bench.py times, for the same arguments."""
