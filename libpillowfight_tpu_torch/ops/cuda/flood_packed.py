@@ -34,11 +34,13 @@ def lsr(x: torch.Tensor, n: int) -> torch.Tensor:
 # ------------------------------------------------------------ pack/unpack
 
 def pack_rows_plain(plane: torch.Tensor) -> torch.Tensor:
-    """bool [B,H,W] -> int32 [B,ceil(H/32),W] packed words."""
+    """bool or uint8 [B,H,W] -> int32 [B,ceil(H/32),W] packed words: bit
+    k of word (q, x) is set where pixel (32q + k, x) is not 0, as the
+    kernel packs it (a uint8 value above 1 sets one bit, not its own)."""
     b, h, w = plane.shape
     hq = (h + 31) // 32
     x = torch.zeros((b, hq * 32, w), dtype=torch.int32, device=plane.device)
-    x[:, :h] = plane.to(torch.int32)
+    x[:, :h] = (plane != 0).to(torch.int32)
     x = x.view(b, hq, 32, w)
     out = torch.zeros((b, hq, w), dtype=torch.int32, device=plane.device)
     for k in range(32):

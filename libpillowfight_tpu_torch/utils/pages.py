@@ -9,10 +9,10 @@ lines, and closes the black border into a frame, so that SWT finds
 letters on it: canny's thresholds are fractions of the page's strongest
 gradient, and on a page that is light up to its rim that is the rim
 itself (the blur and the gradient pad with zeros), twice as strong as
-any glyph's edge. `flood_cases`, `label_cases`, `blur_cases` and
-`line_count_cases` are the small planes on which the kernels are held to
-their plain versions on the card: the CPU tests hold the plain versions
-to the reference on the same planes.
+any glyph's edge. `flood_cases`, `label_cases`, `blur_cases`,
+`line_count_cases`, `pack_cases` and `cert_cases` are the planes on which
+the kernels are held to their plain versions on the card: the CPU tests
+hold the plain versions to the reference on the same planes.
 """
 
 from __future__ import annotations
@@ -347,4 +347,110 @@ def line_count_cases(seed: int = 0) -> list:
     cases.append(("uint8_values", values, 0))
     cases.append(("unaligned_view", rng.random((2, 33, 64)) < 0.5, 1))
     assert tuple(c[0] for c in cases) == LINE_COUNT_CASE_NAMES
+    return cases
+
+
+# widths and heights of the random planes of `pack_cases`: 16-byte loads
+# (16, 2480: A4 at 300 dpi), 4-byte loads (36), byte loads (1, 15, 17,
+# 130), heights around a word row and A4's 3508 (109 word rows and 20
+# rows); `reduced` brings 3508 down to 116 (the same 20 rows past a word)
+PACK_WIDTHS = (1, 15, 16, 17, 36, 130, 2480)
+PACK_HEIGHTS = (1, 31, 32, 33, 3508)
+PACK_REDUCED_H = 116
+
+
+def pack_cases(seed: int = 0, reduced: bool = False) -> list:
+    """Edge cases of the pack, as (name, plane [B,H,W] bool or uint8,
+    offset): random bool planes of every width and height above; an
+    all-dark and an empty A4 plane; uint8 planes of values 0 to 255 on
+    each load width (each non-zero byte sets one bit); views whose data
+    pointer is 1 and 4 bytes past a 16-byte boundary (`offset`: hand the
+    plane to the kernel through `offset_view`), which take byte and
+    4-byte loads."""
+    rng = np.random.default_rng(seed)
+    tall = PACK_REDUCED_H if reduced else 3508
+    cases = []
+    for h in PACK_HEIGHTS:
+        h = tall if h == 3508 else h
+        for w in PACK_WIDTHS:
+            b = 1 if h * w > 1_000_000 else 2
+            cases.append((f"h{h}_w{w}", rng.random((b, h, w)) < 0.5, 0))
+    cases.append((f"all_dark_h{tall}_w2480", np.ones((2, tall, 2480), bool),
+                  0))
+    cases.append((f"empty_h{tall}_w2480", np.zeros((2, tall, 2480), bool), 0))
+    for h, w in ((70, 2480), (45, 36), (40, 17)):
+        values = rng.integers(0, 256, (2, h, w), dtype=np.uint8)
+        values[:, ::3] = 0
+        cases.append((f"uint8_values_h{h}_w{w}", values, 0))
+    for offset in (1, 4):
+        cases.append((f"unaligned_view_{offset}",
+                      rng.random((2, 33, 2480)) < 0.5, offset))
+    return cases
+
+
+def _bars(h: int, w: int) -> np.ndarray:
+    """Isolated clusters of 1 to 17 pixels: bars along the rows, the
+    columns and the diagonal, and blocks filled row by row four pixels
+    wide. Every size k and k + 1 of the certificates' k = 2j, j <= 8."""
+    plane = np.zeros((h, w), bool)
+    x = 2
+    for n in range(1, 18):           # rows
+        plane[2, x: x + n] = True
+        x += n + 2
+    for n in range(1, 18):           # columns
+        plane[6: 6 + n, 2 + 3 * n] = True
+    x = 2
+    for n in range(1, 18):           # diagonals
+        for i in range(n):
+            plane[26 + i, x + i] = True
+        x += n + 2
+    for n in range(1, 18):           # blocks
+        for i in range(n):
+            plane[48 + i // 4, 2 + 7 * n + i % 4] = True
+    return plane
+
+
+# names of `cert_cases`, in order; pages of one shape share the
+# reference's compiles in the CPU tests
+CERT_CASE_NAMES = ("h1_w1_pixel", "h1_w300", "h300_w1", "h70_w45_b2",
+                   "h64_w130", "h33_w257", "full_h100_w96", "empty_h100_w96",
+                   "borders_h64_w130", "bars_h60_w330_b2",
+                   "uint8_values_h40_w272_b2", "unaligned_view")
+
+
+def cert_cases(seed: int = 0) -> list:
+    """Edge cases of the certificate sweep, as (name, plane [B,H,W] bool or
+    uint8, offset) in the order of `CERT_CASE_NAMES`: a one-pixel page,
+    single-row and single-column pages, random planes of widths that are
+    no multiple of 32 (257: past the kernel's 256-column block; 33 rows: a
+    word row and one row), a full
+    and an empty page, isolated pixels and small clusters at the four
+    borders, the clusters of `_bars` (page 1 is page 0 turned by 180
+    degrees), a uint8 plane of values 0 to 255 (each non-zero byte is a
+    mask pixel), and a view whose data pointer is not 16-byte aligned
+    (`offset`: hand the plane to the kernel through `offset_view`)."""
+    rng = np.random.default_rng(seed)
+    cases = [("h1_w1_pixel", np.ones((1, 1, 1), bool), 0),
+             ("h1_w300", rng.random((1, 1, 300)) < 0.5, 0),
+             ("h300_w1", rng.random((1, 300, 1)) < 0.5, 0),
+             ("h70_w45_b2", rng.random((2, 70, 45)) < 0.3, 0),
+             ("h64_w130", rng.random((1, 64, 130)) < 0.35, 0),
+             ("h33_w257", rng.random((1, 33, 257)) < 0.3, 0),
+             ("full_h100_w96", np.ones((1, 100, 96), bool), 0),
+             ("empty_h100_w96", np.zeros((1, 100, 96), bool), 0)]
+    h, w = 64, 130
+    plane = np.zeros((1, h, w), bool)
+    for y, x in ((0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1), (0, 40),
+                 (h - 1, 41), (30, 0), (31, w - 1), (0, 10), (1, 11),
+                 (h - 1, 60), (h - 1, 61), (h - 1, 62), (50, w - 1),
+                 (51, w - 1), (52, w - 1), (20, 0), (21, 1), (22, 0)):
+        plane[0, y, x] = True
+    cases.append(("borders_h64_w130", plane, 0))
+    bars = _bars(60, 330)
+    cases.append(("bars_h60_w330_b2", np.stack([bars, bars[::-1, ::-1]]), 0))
+    values = rng.integers(0, 256, (2, 40, 272), dtype=np.uint8)
+    values[rng.random(values.shape) < 0.6] = 0
+    cases.append(("uint8_values_h40_w272_b2", values, 0))
+    cases.append(("unaligned_view", rng.random((2, 40, 272)) < 0.3, 1))
+    assert tuple(c[0] for c in cases) == CERT_CASE_NAMES
     return cases
