@@ -48,6 +48,17 @@
 // column words and four 16-byte stores: about 1.3 integer instructions a
 // pixel. A plane whose rows are not 16-byte aligned takes 4-byte loads
 // (W % 4 == 0) or byte loads, in the same kernel template.
+//
+// Unpack is the pack reversed: 1/8 B/px in and 1 B/px out (0.0058 ms at
+// A4 300 dpi x 2), so its writes bound it. A thread takes 16 adjacent
+// columns of a word row (four 16-byte loads), transposes each four
+// columns' words by bytes (`__byte_perm`), so that byte c of t[g] holds
+// rows 8g .. 8g+7 of column c, and stores each of its 32 rows as one
+// 16-byte vector, (t[g] >> r) & 0x01010101 on four words: a warp stores
+// 512 contiguous bytes of a row. Planes that do not allow it take 4-byte
+// stores (W % 4 == 0, or a word view that is not 16-byte aligned) or
+// byte stores, in the same kernel template. The 17.4 MB it writes at A4 x
+// 2 fit in the 50 MB L2, so it can end before they reach device memory.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -127,17 +138,69 @@ __global__ void __launch_bounds__(PACK_THREADS)
   }
 }
 
-__global__ void unpack_rows_kernel(const uint32_t* __restrict__ words,
-                                   uint8_t* __restrict__ plane, int H, int W,
-                                   int Hq) {
+// Unpack: a thread takes V adjacent columns (V = 16 or 4) of one word
+// row: V word loads (four 16-byte loads at V = 16), a 4 x 4 byte
+// transpose (`__byte_perm`) of each four columns into t[g], whose byte c
+// holds rows 8g .. 8g+7 of column c, then row 8g + r of the four columns
+// is (t[g] >> r) & 0x01010101: one 16-byte (V = 16) or 4-byte store a
+// row, so that a warp stores V * 32 contiguous bytes of it. V = 1: a
+// thread takes one column, 32 byte stores (any W, any alignment). Rows
+// past H are not written.
+template <int V>
+__global__ void __launch_bounds__(PACK_THREADS)
+    unpack_rows_kernel(const uint32_t* __restrict__ words,
+                       uint8_t* __restrict__ plane, int H, int W, int Hq) {
   const int b = blockIdx.y;
+  const int groups = W / V;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)Hq * W) return;
-  const int q = (int)(i / W), x = (int)(i % W);
-  uint8_t* dst = plane + (size_t)b * H * W + x;
+  if (i >= (size_t)Hq * groups) return;
+  const int q = (int)(i / groups), x = (int)(i % groups) * V;
   const int y0 = q * 32, n = min(32, H - y0);
-  const uint32_t v = words[(size_t)b * Hq * W + i];
-  for (int k = 0; k < n; ++k) dst[(size_t)(y0 + k) * W] = (v >> k) & 1u;
+  const uint32_t* src = words + ((size_t)b * Hq + q) * W + x;
+  uint8_t* dst = plane + ((size_t)b * H + y0) * W + x;
+  if constexpr (V == 1) {
+    const uint32_t v = *src;
+    for (int k = 0; k < n; ++k) dst[(size_t)k * W] = (v >> k) & 1u;
+  } else {
+    constexpr int L = V / 4;  // 32-bit lanes of a store
+    uint32_t w[V];
+    if constexpr (V == 16) {
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const uint4 t = ((const uint4*)src)[l];
+        w[4 * l] = t.x, w[4 * l + 1] = t.y, w[4 * l + 2] = t.z,
+        w[4 * l + 3] = t.w;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < V; ++c) w[c] = src[c];
+    }
+    uint32_t t[4][L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const uint32_t* c = w + 4 * l;
+      const uint32_t a0 = __byte_perm(c[0], c[1], 0x5140);
+      const uint32_t a1 = __byte_perm(c[2], c[3], 0x5140);
+      const uint32_t a2 = __byte_perm(c[0], c[1], 0x7362);
+      const uint32_t a3 = __byte_perm(c[2], c[3], 0x7362);
+      t[0][l] = __byte_perm(a0, a1, 0x5410);
+      t[1][l] = __byte_perm(a0, a1, 0x7632);
+      t[2][l] = __byte_perm(a2, a3, 0x5410);
+      t[3][l] = __byte_perm(a2, a3, 0x7632);
+    }
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      if (k >= n) break;
+      uint32_t o[L];
+#pragma unroll
+      for (int l = 0; l < L; ++l) o[l] = (t[k >> 3][l] >> (k & 7)) & 0x01010101u;
+      uint8_t* row = dst + (size_t)k * W;
+      if constexpr (V == 16)
+        *(uint4*)row = make_uint4(o[0], o[1], o[2], o[3]);
+      else
+        *(uint32_t*)row = o[0];
+    }
+  }
 }
 
 // The map c -> a | (m & c) of one step of a segmented OR.
@@ -422,10 +485,6 @@ __global__ void __launch_bounds__(THREADS)
   if (blockIdx.x == 0 && threadIdx.x == 0) info[3] = round;
 }
 
-inline dim3 word_grid(int Hq, int W, int B) {
-  return dim3((unsigned)(((size_t)Hq * W + THREADS - 1) / THREADS), B);
-}
-
 template <int V>
 void launch_pack(const void* plane, void* words, int B, int H, int W, int Hq,
                  cudaStream_t s) {
@@ -433,6 +492,15 @@ void launch_pack(const void* plane, void* words, int B, int H, int W, int Hq,
   const dim3 grid((unsigned)((n + PACK_THREADS - 1) / PACK_THREADS), B);
   pack_rows_kernel<V><<<grid, PACK_THREADS, 0, s>>>(
       (const uint8_t*)plane, (uint32_t*)words, H, W, Hq);
+}
+
+template <int V>
+void launch_unpack(const void* words, void* plane, int B, int H, int W,
+                   int Hq, cudaStream_t s) {
+  const size_t n = (size_t)Hq * (W / V);
+  const dim3 grid((unsigned)((n + PACK_THREADS - 1) / PACK_THREADS), B);
+  unpack_rows_kernel<V><<<grid, PACK_THREADS, 0, s>>>(
+      (const uint32_t*)words, (uint8_t*)plane, H, W, Hq);
 }
 
 }  // namespace
@@ -458,14 +526,23 @@ extern "C" int pft_pack_rows(const void* plane, void* words, int B, int H,
   return (int)cudaGetLastError();
 }
 
-// words: uint32 [B,ceil(H/32),W] -> plane: uint8/bool [B,H,W].
+// words: uint32 [B,ceil(H/32),W] -> plane: uint8/bool [B,H,W]. 16-byte
+// stores need W % 16 == 0 and a 16-byte aligned plane, and the 16-byte
+// loads a 16-byte aligned word view; 4-byte stores W % 4 == 0; any
+// other plane takes byte stores.
 extern "C" int pft_unpack_rows(const void* words, void* plane, int B, int H,
                                int W, void* stream) {
   const int Hq = (H + 31) / 32;
-  if (B > 0 && Hq > 0 && W > 0)
-    unpack_rows_kernel<<<word_grid(Hq, W, B), THREADS, 0,
-                         (cudaStream_t)stream>>>((const uint32_t*)words,
-                                                 (uint8_t*)plane, H, W, Hq);
+  const uintptr_t p = (uintptr_t)plane, w = (uintptr_t)words;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (B > 0 && Hq > 0 && W > 0) {
+    if (W % 16 == 0 && p % 16 == 0 && w % 16 == 0)
+      launch_unpack<16>(words, plane, B, H, W, Hq, s);
+    else if (W % 4 == 0 && p % 4 == 0)
+      launch_unpack<4>(words, plane, B, H, W, Hq, s);
+    else
+      launch_unpack<1>(words, plane, B, H, W, Hq, s);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -10,9 +10,10 @@ letters on it: canny's thresholds are fractions of the page's strongest
 gradient, and on a page that is light up to its rim that is the rim
 itself (the blur and the gradient pad with zeros), twice as strong as
 any glyph's edge. `flood_cases`, `label_cases`, `blur_cases`,
-`line_count_cases`, `pack_cases` and `cert_cases` are the planes on which
-the kernels are held to their plain versions on the card: the CPU tests
-hold the plain versions to the reference on the same planes.
+`line_count_cases`, `pack_cases`, `unpack_cases` and `cert_cases` (also
+the ball count's) are the planes on which the kernels are held to their
+plain versions on the card: the CPU tests hold the plain versions to the
+reference on the same planes.
 """
 
 from __future__ import annotations
@@ -387,6 +388,28 @@ def pack_cases(seed: int = 0, reduced: bool = False) -> list:
                       rng.random((2, 33, 2480)) < 0.5, offset))
     return cases
 
+
+
+# word offsets of the unaligned word views of `unpack_cases`: 4 and 8
+# bytes past a 16-byte boundary
+UNPACK_WORD_OFFSETS = (1, 2)
+
+
+def unpack_cases(seed: int = 0, reduced: bool = False) -> list:
+    """Edge cases of the unpack, as (name, plane bool [B,H,W], offset): the
+    aligned planes of `pack_cases` as their non-zero test (every store
+    width: 16 bytes at W = 16 and 2480, 4 bytes at W = 36, bytes at W = 1,
+    15, 17 and 130; heights around a word row up to A4's), to be packed
+    and unpacked, and two A4-wide planes whose words go to the kernel
+    through `offset_view` 1 and 2 words past a 16-byte boundary (`offset`,
+    in words), which take 4-byte stores."""
+    cases = [(name, plane != 0, 0)
+             for name, plane, offset in pack_cases(seed, reduced) if not offset]
+    rng = np.random.default_rng(seed + 1)
+    for offset in UNPACK_WORD_OFFSETS:
+        cases.append((f"unaligned_words_{offset}",
+                      rng.random((2, 33, 2480)) < 0.5, offset))
+    return cases
 
 def _bars(h: int, w: int) -> np.ndarray:
     """Isolated clusters of 1 to 17 pixels: bars along the rows, the
