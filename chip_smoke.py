@@ -72,9 +72,35 @@
    and the device's idle share during swt; the packed flood alone at
    A4 x 16 and the sweep flood alone at A4 600 dpi x 4, the shapes those
    paths give them;
-7. prints the kernels line (JSON; beside the contract's keys each kernel
-   has `kernel_ms`, `other_device_ms` and `host_ms`), then the result line
-   (JSON), last.
+   then the chain's `utils.metrics.device_time` beside its time, and the
+   card's copy bandwidth by `utils.metrics.measure_peak_hbm_bw`;
+7. drives the façade and the runner on the card, each call with every
+   launch count set to 0 just before and read just after:
+   - the façade's 13 functions on one A4 page (through
+     `pillowfight_torch` on PIL images where PIL imports, else through
+     the façade's private numpy functions, and it says which), each
+     launching the kernels of `FACADE_KERNELS` (sobel, blurfilter,
+     grayfilter, compare and ace in its default mode "rolled" none), each
+     held to the same call with device="cpu" at the bar of ROADMAP.md
+     (swt and ace on a SWT_SMALL page); ace in mode "shared" once (the
+     spray kernel, also held to its plain version on the card at A4) and
+     the blackfilter once on an A4 600 dpi page (the sweep flood);
+   - DOCUMENT_CLEANUP over 64 A4 pages read from 16 PPM files (written by
+     the port's `io.write_ppm` under chiprun_out/) through
+     `io.ImagePageSource` -> `parallel.BatchRunner`, chunk 16: every page
+     delivered once, bit-identical to run_pipeline on the card; then the
+     same run killed at the third chunk by its source and resumed from its
+     manifest;
+   - config 5 (BASELINE.json configs[4]): DOCUMENT_CLEANUP + swt over 128
+     A4 pages read from 16 `text_pages` PPM files the same way, every page
+     bit-identical to run_pipeline on the card; pages/s and MP/s over the
+     wall clock from the first source call to the last sink (decode and
+     both copies in, the files in the page cache), the time spent
+     waiting on the source, and the device's idle share from one profiled
+     chunk; the files are deleted afterwards;
+8. prints the kernels line (JSON; beside the contract's keys each kernel
+   has `kernel_ms`, `other_device_ms` and `host_ms`; `launches` sums the
+   counted paths of 5 and 7), then the result line (JSON), last.
 
 Any failed phase raises, and the exit code is then non-zero.
 
@@ -101,6 +127,7 @@ import contextlib
 import importlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1249,6 +1276,389 @@ def idle_share(fn, x, name: str, wall_ms: float) -> None:
         f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.1%}")
 
 
+# -- the façade, the runner and config 5 ------------------------------------
+
+# The kernels each façade call launches on the card at A4 300 dpi; a
+# function listed with none must launch none. `ace` is the façade's
+# default mode, "rolled" (plain torch, as in the reference).
+FACADE_KERNELS = {
+    "unpaper_blackfilter": ["pack_rows", "flood_round", "unpack_rows"],
+    "unpaper_noisefilter": ["noise_cert", "flood_round", "unpack_rows"],
+    "unpaper_blurfilter": [],
+    "unpaper_masks": ["line_counts"],
+    "unpaper_grayfilter": [],
+    "unpaper_border": ["line_counts"],
+    "gaussian": ["gaussian_sep", "gaussian_sep[hw10]"],
+    "sobel": [],
+    "canny": ["gaussian_sep", "pack_rows", "flood_round", "unpack_rows"],
+    "swt": ["gaussian_sep", "pack_rows", "flood_round", "unpack_rows",
+            "label_links"],
+    "ace": [],
+    "compare": [],
+}
+# held to the CPU on a SWT_SMALL page: the CPU takes too long at A4
+SMALL_ON_CPU = ("swt", "ace")
+CHAIN_KERNELS = ["line_counts", "pack_rows", "unpack_rows", "flood_round",
+                 "noise_cert"]
+RUNNER_CHUNK, RUNNER_PAGES, CORPUS_FILES = 16, 64, 16
+CONFIG5_PAGES = 128
+
+
+def corpus_dir() -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "chiprun_out", "smoke_corpus")
+
+
+def write_corpus(pages, name: str) -> list:
+    """Each page as a binary PPM, written by the port's `io.write_ppm`."""
+    import os
+
+    from libpillowfight_tpu_torch import io as pio
+
+    d = os.path.join(corpus_dir(), name)
+    os.makedirs(d, exist_ok=True)
+    paths = []
+    for i, page in enumerate(pages):
+        paths.append(os.path.join(d, f"page_{i:03d}.ppm"))
+        pio.write_ppm(paths[-1], page)
+    return paths
+
+
+def facade_call(name: str, pages: list, kw: dict, use_pil: bool):
+    """One façade call on uint8 RGBA numpy pages (two for compare):
+    through `pillowfight_torch` on PIL images where PIL imports, else
+    through the façade's private numpy-in, numpy-out function. Returns
+    numpy RGBA, or (count, diff) for compare."""
+    import numpy as np
+
+    from libpillowfight_tpu_torch import compat
+
+    if use_pil:
+        import pillowfight_torch
+
+        from libpillowfight_tpu_torch.core.bitmap import to_pil
+
+        out = getattr(pillowfight_torch, name)(*map(to_pil, pages), **kw)
+        return (out[0], np.asarray(out[1])) if name == "compare" \
+            else np.asarray(out)
+    if name.startswith("unpaper_"):
+        return compat._unpaper_rgba(name, *pages, **kw)
+    return getattr(compat, f"_{name}_rgba")(*pages, **kw)
+
+
+def facade_parity(name: str, got, want) -> str:
+    """Hold a façade result to another at the ROADMAP's bar for it;
+    returns what was found, raises past the bar."""
+    import numpy as np
+
+    if name == "compare":
+        if got[0] != want[0] or not np.array_equal(got[1], want[1]):
+            raise AssertionError(f"compare: {got[0]} against {want[0]} "
+                                 f"differing pixels, or another diff page")
+        return f"bit-identical ({got[0]} differing pixels)"
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.shape} {got.dtype} against "
+                             f"{want.shape} {want.dtype}")
+    if name.startswith("unpaper_"):
+        n = int((got != want).sum())
+        if n:
+            raise AssertionError(f"{name}: {n} bytes differ")
+        return "bit-identical"
+    if name in ("gaussian", "sobel", "ace"):
+        lsb = int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
+        if lsb > 1:
+            raise AssertionError(f"{name}: {lsb} LSB apart")
+        return f"max {lsb} LSB"
+    if name == "canny":
+        edges = int((want[..., 0] > 0).sum())
+        differ = int((got[..., 0] != want[..., 0]).sum())
+        if edges == 0 or differ > CANNY_BAR * edges:
+            raise AssertionError(f"canny: {differ} of {edges} edge pixels "
+                                 f"differ")
+        return f"{differ} of {edges} edge pixels differ"
+    a, b = got[..., 0] != 255, want[..., 0] != 255  # swt's letters
+    iou = float((a & b).sum()) / max(float((a | b).sum()), 1.0)
+    if int(b.sum()) == 0 or iou < SWT_IOU_BAR:
+        raise AssertionError(f"swt: letter-mask IoU {iou} ({int(b.sum())} "
+                             f"letter pixels)")
+    return f"letter-mask IoU {iou:.6f} ({int(b.sum())} letter pixels)"
+
+
+def check_facade(total: dict) -> None:
+    """The façade's 13 functions on one A4 page on the card, each call
+    counted and held to the same call with device="cpu"; ace in mode
+    "shared" (the spray kernel) and the blackfilter at A4 600 dpi (the
+    sweep flood) once each."""
+    from libpillowfight_tpu_torch.utils.pages import (synthetic_pages,
+                                                      text_pages)
+
+    try:
+        import PIL.Image  # noqa: F401
+        use_pil = True
+        log("façade: through pillowfight_torch on PIL images")
+    except ImportError:
+        use_pil = False
+        log("façade: PIL does not import here, so through the façade's "
+            "private numpy-in, numpy-out functions (compat._<name>_rgba)")
+    page = text_pages(1, A4_H, A4_W)[0]
+    other = page.copy()
+    other[A4_H // 3: A4_H // 2, A4_W // 4: A4_W // 2, :3] = 128
+    small = text_pages(1, *SWT_SMALL)[0]
+    cpu = {"device": "cpu"}
+    runs = [(name, {}, FACADE_KERNELS[name]) for name in FACADE_KERNELS]
+    runs.append(("ace", {"mode": "shared"}, ["ace_spray"]))
+    for name, kw, expect in runs:
+        pages = [page, other] if name == "compare" else [page]
+        label = f"façade {name}" + (f" {kw}" if kw else "")
+        t0 = time.perf_counter()
+        got, counts = counted(lambda: facade_call(name, pages, kw, use_pil),
+                              label, expect)
+        card_s = time.perf_counter() - t0
+        launched = [k for k in KERNELS if counts[k]]
+        if not expect and launched:
+            raise AssertionError(f"{label} launched {launched}, expected "
+                                 f"none")
+        for k in total:
+            total[k] += counts[k]
+        t0 = time.perf_counter()
+        if name in SMALL_ON_CPU:
+            where = f"SWT_SMALL {SWT_SMALL}"
+            note = facade_parity(
+                name, facade_call(name, [small], kw, use_pil),
+                facade_call(name, [small], {**kw, **cpu}, use_pil))
+        else:
+            where = "A4"
+            note = facade_parity(name, got, facade_call(
+                name, pages, {**kw, **cpu}, use_pil))
+        if kw.get("mode") == "shared":
+            with plain_versions():
+                plain = facade_call(name, pages, kw, use_pil)
+            note += ("; A4 against its plain versions on the card: "
+                     + facade_parity(name, got, plain))
+        log(f"{label}: card {card_s:.2f} s, launched {launched or 'none'}; "
+            f"against device='cpu' at {where} ({time.perf_counter() - t0:.1f}"
+            f" s): {note}")
+    del got, page, other
+    page600 = synthetic_pages(1, A4_600_H, A4_600_W)[0]
+    got, counts = counted(lambda: facade_call("unpaper_blackfilter",
+                                              [page600], {}, use_pil),
+                          "façade unpaper_blackfilter, A4 600 dpi",
+                          ["flood_sweep"])
+    for k in total:
+        total[k] += counts[k]
+    t0 = time.perf_counter()
+    note = facade_parity("unpaper_blackfilter", got, facade_call(
+        "unpaper_blackfilter", [page600], cpu, use_pil))
+    log(f"façade unpaper_blackfilter, A4 600 dpi: launched "
+        f"{[k for k in KERNELS if counts[k]]}; against device='cpu' "
+        f"({time.perf_counter() - t0:.1f} s): {note}")
+
+
+class TimedSource:
+    """A runner's source that records how long each call took (the time
+    the runner waited on it) and when the first call began."""
+
+    def __init__(self, src):
+        self.src = src
+        self.waits = []
+        self.t_first = None
+
+    def __call__(self, idx):
+        t0 = time.perf_counter()
+        if self.t_first is None:
+            self.t_first = t0
+        out = self.src(idx)
+        self.waits.append(time.perf_counter() - t0)
+        return out
+
+    def summary(self) -> str:
+        return (f"{sum(self.waits):.3f} s waiting on the source ({len(self.waits)}"
+                f" calls: the first, decoded without prefetch, "
+                f"{self.waits[0]:.3f} s; the others {sum(self.waits[1:]):.3f} s)")
+
+
+class PageCheck:
+    """A sink that holds each delivered page to the expected output of
+    its file (`want[j % len(want)]`), counts deliveries and records the
+    time spent in it and when it last returned."""
+
+    def __init__(self, want):
+        from collections import Counter
+
+        self.want = want
+        self.seen = Counter()
+        self.bad = []
+        self.t_last = None
+        self.seconds = 0.0
+
+    def __call__(self, idx, out) -> None:
+        import numpy as np
+
+        t0 = time.perf_counter()
+        for i, j in enumerate(idx):
+            self.seen[int(j)] += 1
+            want = self.want[int(j) % len(self.want)]
+            # compared as 64-bit words: half the time of bytes
+            if out[i].shape != want.shape or not np.array_equal(
+                    out[i].reshape(-1).view(np.uint64),
+                    want.reshape(-1).view(np.uint64)):
+                self.bad.append(int(j))
+        self.t_last = time.perf_counter()
+        self.seconds += self.t_last - t0
+
+    def expect_once(self, n: int, what: str) -> None:
+        twice = sorted(j for j, c in self.seen.items() if c > 1)
+        if self.bad or twice or sorted(self.seen) != list(range(n)):
+            raise AssertionError(
+                f"{what}: pages differing from run_pipeline {self.bad[:8]}, "
+                f"delivered twice {twice[:8]}, {len(self.seen)} of {n} "
+                f"delivered")
+
+
+def check_runner(total: dict, dev) -> None:
+    """DOCUMENT_CLEANUP through `io.ImagePageSource` -> `BatchRunner` on
+    PPM files: bit-identical to run_pipeline on the card; then killed at
+    the third chunk by its source and resumed from the manifest."""
+    import os
+
+    import numpy as np
+
+    import libpillowfight_tpu_torch as pt
+    from libpillowfight_tpu_torch import io as pio
+    from libpillowfight_tpu_torch.parallel import BatchRunner
+    from libpillowfight_tpu_torch.utils.pages import synthetic_pages
+
+    spec = pt.normalize_spec(pt.DOCUMENT_CLEANUP)
+    pages = np.concatenate([synthetic_pages(1, A4_H, A4_W, seed=s)
+                            for s in range(CORPUS_FILES)])
+    paths = write_corpus(pages, "cleanup")
+    log(f"runner: {CORPUS_FILES} distinct A4 pages written as PPM "
+        f"(io codec: {'native libpfio' if pio.available() else 'numpy'})")
+    want = pt.run_pipeline(torch.from_numpy(pages).to(dev), spec).cpu().numpy()
+    cycle = [paths[j % CORPUS_FILES] for j in range(RUNNER_PAGES)]
+
+    def run(source, sink, manifest=None):
+        return BatchRunner(spec, chunk_size=RUNNER_CHUNK,
+                           manifest_path=manifest).run(RUNNER_PAGES, source,
+                                                       sink)
+
+    check = PageCheck(want)
+    with pio.ImagePageSource(cycle, shape=(A4_H, A4_W)) as src:
+        source = TimedSource(src)
+        m, counts = counted(lambda: run(source, check),
+                            "runner DOCUMENT_CLEANUP", CHAIN_KERNELS)
+        failed = src.failed
+    for k in total:
+        total[k] += counts[k]
+    check.expect_once(RUNNER_PAGES, "runner")
+    if failed or m.pages != RUNNER_PAGES:
+        raise AssertionError(f"runner: {failed} pages failed to decode, "
+                             f"{m.pages} processed")
+    log(f"runner DOCUMENT_CLEANUP, {RUNNER_PAGES} A4 pages from "
+        f"{CORPUS_FILES} PPM files, chunk {RUNNER_CHUNK}: every page "
+        f"delivered once, bit-identical to run_pipeline on the card; "
+        f"{json.dumps(m.to_dict())}; {source.summary()}, {check.seconds:.3f}"
+        f" s in the checking sink")
+
+    manifest = os.path.join(corpus_dir(), "cleanup.manifest")
+    check = PageCheck(want)
+    with pio.ImagePageSource(cycle, shape=(A4_H, A4_W)) as src:
+        def dying(idx):
+            if idx[0] == 2 * RUNNER_CHUNK:
+                raise ValueError("source killed at the third chunk")
+            return src(idx)
+
+        try:
+            run(dying, check, manifest)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("runner: the killed run did not raise")
+        first = len(check.seen)
+        m2 = run(src, check, manifest)
+    check.expect_once(RUNNER_PAGES, "runner, resumed")
+    if m2.pages != RUNNER_PAGES - first:
+        raise AssertionError(f"runner, resumed: {m2.pages} pages processed "
+                             f"after {first}")
+    log(f"runner killed at chunk 3 by its source after {first} pages were "
+        f"delivered, resumed from the manifest: {m2.pages} more, every page "
+        f"delivered once, bit-identical to run_pipeline")
+
+
+def config5(total: dict, dev, card: str) -> None:
+    """Config 5 (BASELINE.json configs[4]): DOCUMENT_CLEANUP then swt over
+    CONFIG5_PAGES A4 pages, read from CORPUS_FILES distinct `text_pages`
+    PPM files through `io.ImagePageSource` -> `BatchRunner`. Wall clock
+    from the first source call to the last sink, decode and both copies
+    in; the files were just written, so they sit in the page cache and
+    no disk read is in the number. Then one chunk again under the
+    profiler, for the device's idle share."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import libpillowfight_tpu_torch as pt
+    from libpillowfight_tpu_torch import io as pio
+    from libpillowfight_tpu_torch.parallel import BatchRunner
+    from libpillowfight_tpu_torch.utils.pages import text_pages
+
+    spec = pt.normalize_spec(pt.DOCUMENT_CLEANUP + (("swt", {}),))
+    pages = np.concatenate([text_pages(1, A4_H, A4_W, seed=s)
+                            for s in range(CORPUS_FILES)])
+    paths = write_corpus(pages, "text")
+    want = pt.run_pipeline(torch.from_numpy(pages).to(dev), spec).cpu().numpy()
+    del pages
+    cycle = [paths[j % CORPUS_FILES] for j in range(CONFIG5_PAGES)]
+    check = PageCheck(want)
+    with pio.ImagePageSource(cycle, shape=(A4_H, A4_W)) as src:
+        source = TimedSource(src)
+        runner = BatchRunner(spec, chunk_size=RUNNER_CHUNK)
+        m, counts = counted(lambda: runner.run(CONFIG5_PAGES, source, check),
+                            "config 5", CHAIN_KERNELS + ["gaussian_sep",
+                                                         "label_links"])
+        failed = src.failed
+    for k in total:
+        total[k] += counts[k]
+    check.expect_once(CONFIG5_PAGES, "config 5")
+    if failed:
+        raise AssertionError(f"config 5: {failed} pages failed to decode")
+    wall = check.t_last - source.t_first
+    mp = CONFIG5_PAGES * A4_H * A4_W / 1e6
+    log(f"config 5 (DOCUMENT_CLEANUP + swt, {CONFIG5_PAGES} A4 pages from "
+        f"{CORPUS_FILES} PPM files in the page cache, chunk {RUNNER_CHUNK}, "
+        f"one card): {wall:.3f} s wall clock from the first source call to "
+        f"the last sink, {CONFIG5_PAGES / wall:.3f} pages/s, "
+        f"{mp / wall:.2f} MP/s; {source.summary()}; {check.seconds:.3f} s in "
+        f"the sink, which holds every page to run_pipeline on the card "
+        f"(bit-identical): less that time {CONFIG5_PAGES / (wall - check.seconds):.3f}"
+        f" pages/s, {mp / (wall - check.seconds):.2f} MP/s; chunks (s): "
+        f"{', '.join(f'{t:.3f}' for t in m.chunk_seconds)}; "
+        f"{json.dumps(m.to_dict())}; on {card}")
+    chunk_ms = wall / (CONFIG5_PAGES / RUNNER_CHUNK) * 1e3
+    with pio.ImagePageSource(paths, shape=(A4_H, A4_W)) as src:
+        runner = BatchRunner(spec, chunk_size=RUNNER_CHUNK)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runner.run(RUNNER_CHUNK, src)
+            torch.cuda.synchronize()
+            profiled_ms = (time.perf_counter() - t0) * 1e3
+    busy_us = sum(getattr(e, "self_device_time_total", 0)
+                  or getattr(e, "self_cuda_time_total", 0)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    if busy_us <= 0:
+        log("config 5: device idle share not measured (the profiler shows "
+            "no device time)")
+        return
+    log(f"config 5: one profiled chunk ({RUNNER_CHUNK} pages, its source "
+        f"decoded without prefetch): {busy_us / 1e3:.2f} ms of device time "
+        f"(kernels and copies) in {profiled_ms:.2f} ms profiled; against the "
+        f"unprofiled run's {chunk_ms:.2f} ms a chunk: device idle share "
+        f"{max(0.0, 1 - busy_us / 1e3 / chunk_ms):.1%}")
+
+
 def load_tree(root: str, name: str):
     """The package of another tree of this repository, loaded beside this
     one under the module name `name` (its relative imports stay inside
@@ -1628,6 +2038,7 @@ def main() -> int:
     from libpillowfight_tpu_torch import _build
     from libpillowfight_tpu_torch.core.bitmap import words_to_gray
     from libpillowfight_tpu_torch.ops.cuda import flood_packed as fp
+    from libpillowfight_tpu_torch.utils import metrics
     from libpillowfight_tpu_torch.utils.pages import (synthetic_pages,
                                                       text_pages)
 
@@ -1730,6 +2141,11 @@ def main() -> int:
                    "chain", card)
     log(f"unpaper_cleanup_pipeline_throughput "
         f"{TIME_BATCH * A4_H * A4_W / 1e3 / ms:.2f} MP/s")
+    dt_s = metrics.device_time(pt.run_pipeline, batches[0], cleanup)
+    log(f"chain A4 x {TIME_BATCH}: metrics.device_time {dt_s * 1e3:.2f} ms a "
+        f"call (CUDA events over 8 calls back to back, median of 3) beside "
+        f"time_path's {ms:.2f} ms (one call a reading, median of "
+        f"{TIME_ITERS}) on {card}")
     time_path(lambda x: pt.run_pipeline(x, edges), batches, "EDGE_STACK",
               card)
     time_path(lambda x: pt.run_pipeline(x, ace_spec), batches,
@@ -1741,6 +2157,18 @@ def main() -> int:
     time_sweep_flood(*blackfilter_flood_inputs(words_to_gray(batches[0])), 20,
                      f"A4 600 dpi x {TIME_BATCH_600}, blackfilter inputs")
     del batches
+    bw = metrics.measure_peak_hbm_bw(dev)
+    log(f"measure_peak_hbm_bw: {bw / 1e9:.1f} GB/s (a 1 GiB device-to-device "
+        f"copy, read and write counted; {bw / HBM_BYTES_PER_S:.1%} of the data "
+        f"sheet's {HBM_BYTES_PER_S / 1e12:.2f} TB/s) on {card}")
+
+    # 7. the façade, the runner and config 5, each call counted
+    try:
+        check_facade(total)
+        check_runner(total, dev)
+        config5(total, dev, card)
+    finally:
+        shutil.rmtree(corpus_dir(), ignore_errors=True)
     # last: reading the profiler's trace leaves the card idle for seconds
     idle_share(lambda x: pt.run_pipeline(x, swt_spec), text16,
                "swt (mode 0)", swt_ms)

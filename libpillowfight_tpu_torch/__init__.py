@@ -2,17 +2,24 @@
 gaussian, sobel, canny, ACE, SWT and compare).
 
 The JAX package `libpillowfight_tpu` is the reference; this package
-mirrors its layout and its top-level names (all but the `compat` façade
-and `io`, not ported yet) and is held against it: bit-identical for the
-cleanup chain, within the parity bars of ROADMAP.md for the rest. It
-imports `torch` and never `jax`.
+mirrors its layout and its top-level names and is held against it:
+bit-identical for the cleanup chain, within the parity bars of ROADMAP.md
+for the rest. It imports `torch` and never `jax`.
+
+Two API surfaces, as in the reference:
+
+* **Batched API** (`ops`, `run_pipeline`, `parallel.BatchRunner`):
+  uint8 RGBA [B,H,W,4] or int32 word tensors.
+* **Compatibility façade** (`compat`, and the `pillowfight_torch` shim):
+  PIL.Image in and out, one call per image, on the first CUDA card
+  unless the call passes `device=`. Page IO for the runner is `io`.
 
 Every function takes its device from the input tensor: a CPU tensor runs
 the plain PyTorch version of each kernel, a CUDA tensor launches the
 hand-written Hopper kernels in `csrc/` (built with nvcc at first use).
 """
 
-from . import core, ops, parallel, utils
+from . import compat, core, io, ops, parallel, utils
 from .core.bitmap import compare
 from .core.constants import (
     SWT_OUTPUT_BW_TEXT,
@@ -38,7 +45,7 @@ from .parallel.pipeline import (DOCUMENT_CLEANUP, EDGE_STACK,
 from .version import __version__, get_version
 
 __all__ = [
-    "core", "ops", "parallel", "utils",
+    "compat", "core", "io", "ops", "parallel", "utils",
     "ace", "canny", "compare", "gaussian", "get_version", "sobel", "swt",
     "unpaper_blackfilter", "unpaper_blurfilter", "unpaper_border",
     "unpaper_grayfilter", "unpaper_masks", "unpaper_noisefilter",

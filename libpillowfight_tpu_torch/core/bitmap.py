@@ -1,6 +1,5 @@
-"""Batched RGBA pages and their word / gray views (port of
-`libpillowfight_tpu/core/bitmap.py`, all but its host-side PIL and PPM
-helpers).
+"""Batched RGBA pages and their word / gray views, and the host-side
+PIL, PPM and word helpers (port of `libpillowfight_tpu/core/bitmap.py`).
 
 Pages are uint8 RGBA [B,H,W,4]; words are the same bytes viewed as
 **int32** [B,H,W] (R = low byte). torch's uint32 has no `>>` or `>` on
@@ -10,6 +9,7 @@ alpha byte >= 128 would sign-extend into B.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import constants as C
@@ -133,3 +133,50 @@ def shift2d(x: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
     if y0 < y1 and x0 < x1:
         out[..., y0:y1, x0:x1] = x[..., y0 + dy:y1 + dy, x0 + dx:x1 + dx]
     return out
+
+
+# --------------------------------------------------------------------------
+# host-side conversions (PIL / numpy)
+# --------------------------------------------------------------------------
+
+def from_pil(img) -> np.ndarray:
+    """PIL.Image -> uint8 RGBA [H, W, 4] (host numpy)."""
+    return np.asarray(img.convert("RGBA"), dtype=np.uint8)
+
+
+def to_pil(arr):
+    """uint8 RGBA [H, W, 4] -> PIL.Image (PIL is imported here, so that
+    the package imports without it)."""
+    from PIL import Image
+
+    return Image.fromarray(np.asarray(arr, dtype=np.uint8), mode="RGBA")
+
+
+def write_ppm(path: str, arr) -> None:
+    """Debug dump of RGBA, RGB or gray uint8 as binary PPM (ref: util.c
+    pf_write_bitmap_to_ppm)."""
+    a = np.asarray(arr)
+    if a.ndim == 3 and a.shape[-1] == 4:
+        a = a[..., :3]
+    elif a.ndim == 2:
+        a = np.stack([a] * 3, axis=-1)
+    a = a.astype(np.uint8)
+    h, w = a.shape[:2]
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (w, h))
+        f.write(a.tobytes())
+
+
+def host_pages_to_words(pages: np.ndarray) -> np.ndarray:
+    """Free numpy view: uint8 [B,H,W,4] -> uint32 [B,H,W], as the
+    reference's. The port's words are int32: take `.view(np.int32)`
+    before `torch.from_numpy`."""
+    pages = np.ascontiguousarray(pages, np.uint8)
+    return pages.view(np.uint32).reshape(pages.shape[:-1])
+
+
+def host_words_to_pages(words: np.ndarray) -> np.ndarray:
+    """Free numpy view: uint32 [B,H,W] -> uint8 [B,H,W,4] (int32 words
+    cast to uint32 keep their bits)."""
+    words = np.ascontiguousarray(words, np.uint32)
+    return words.view(np.uint8).reshape(words.shape + (4,))

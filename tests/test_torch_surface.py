@@ -1,8 +1,8 @@
 """The port's top-level names against the reference package's: every
-name of `libpillowfight_tpu.__all__` but the `compat` façade and `io`
-(not ported yet), the 15 names of `ops`, the version, and the six
-`unpaper_*` functions as the top level exports them, bit-identical to
-the reference's on a small CPU page."""
+name of `libpillowfight_tpu.__all__` (the `compat` façade and `io`
+included), the 15 names of `ops`, the version, and the six `unpaper_*`
+functions as the top level exports them, bit-identical to the
+reference's on a small CPU page."""
 
 import numpy as np
 import pytest
@@ -14,17 +14,15 @@ import libpillowfight_tpu_torch as pt
 
 torch.set_num_threads(1)
 
-NOT_PORTED = {"compat", "io"}
 UNPAPER = ("unpaper_blackfilter", "unpaper_noisefilter", "unpaper_blurfilter",
            "unpaper_masks", "unpaper_grayfilter", "unpaper_border")
 
 
 def test_top_level_names():
-    missing = [n for n in pf.__all__
-               if n not in NOT_PORTED and not hasattr(pt, n)]
+    missing = [n for n in pf.__all__ if not hasattr(pt, n)]
     assert missing == []
-    assert set(pf.__all__) - NOT_PORTED <= set(pt.__all__)
-    for sub in ("core", "ops", "parallel"):
+    assert set(pf.__all__) <= set(pt.__all__)
+    for sub in ("compat", "core", "io", "ops", "parallel"):
         assert getattr(pt, sub).__name__ == f"libpillowfight_tpu_torch.{sub}"
     assert (pt.SWT_OUTPUT_BW_TEXT, pt.SWT_OUTPUT_GRAYSCALE_TEXT,
             pt.SWT_OUTPUT_ORIGINAL_BOXES) == (pf.SWT_OUTPUT_BW_TEXT,
