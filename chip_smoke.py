@@ -66,12 +66,21 @@
      give;
    - DOCUMENT_CLEANUP at A4 600 dpi x 2 (the sweep flood's route),
      bit-identical to the plain chain on the CPU;
+   then (5b) holds one A4 page through the card's gaussian and sobel
+   (<= 1 LSB), canny (at most max(0.1% of the oracle's edge pixels, 2)
+   differ), each of the six unpaper filters (wiped-region IoU >= 0.99,
+   under 1% of pixels differ), swt mode 0 (letter-mask IoU >= 0.99 on a
+   `bar_pages` page; on a `text_pages` page, where the reference itself
+   reads ~0.9, a reading only) and ace with 16 shared samples injected
+   into both (<= 1 LSB) to the C oracle (`utils.oracle`, built with
+   make), at the bars of the reference's oracle tests, each call counted;
 6. times swt, the cleanup chain, EDGE_STACK and ace (100 samples) on
-   A4 x 16 and the cleanup chain on A4 600 dpi x 4 (two distinct dirty
-   batches, median of CUDA-event times), prints MP/s, the stages of swt
-   and the device's idle share during swt; the packed flood alone at
-   A4 x 16 and the sweep flood alone at A4 600 dpi x 4, the shapes those
-   paths give them;
+   A4 x 16 and the cleanup chain, EDGE_STACK, ace and swt on A4 600 dpi
+   x 4 (two distinct dirty batches, median of CUDA-event times), prints
+   MP/s, swt's peak device memory at both sizes, the stages of swt and
+   the device's idle share during swt; the packed flood alone at A4 x 16
+   and the sweep flood alone at A4 600 dpi x 4, the shapes those paths
+   give them;
    then the chain's `utils.metrics.device_time` beside its time, and the
    card's copy bandwidth by `utils.metrics.measure_peak_hbm_bw`;
 7. drives the façade and the runner on the card, each call with every
@@ -100,7 +109,7 @@
      chunk; the files are deleted afterwards;
 8. prints the kernels line (JSON; beside the contract's keys each kernel
    has `kernel_ms`, `other_device_ms` and `host_ms`; `launches` sums the
-   counted paths of 5 and 7), then the result line (JSON), last.
+   counted paths of 5, 5b and 7), then the result line (JSON), last.
 
 Any failed phase raises, and the exit code is then non-zero.
 
@@ -135,6 +144,10 @@ import time
 
 import torch
 
+from libpillowfight_tpu_torch.utils.metrics import (
+    ACE_SLOTS_PER_PIXEL_SAMPLE, F32_OPS_PER_S, HBM_BYTES_PER_S, SFU_OPS_PER_S,
+    card_name_and_power)
+
 A4_H, A4_W = 3508, 2480
 A4_600_H, A4_600_W = 7016, 4960
 CHECK_BATCH, TIME_BATCH, TIME_BATCH_600 = 2, 16, 4
@@ -143,20 +156,6 @@ ACE_SEED = 7
 CANNY_BAR = 0.001     # share of edge pixels that may differ
 SWT_IOU_BAR = 0.99    # letter-mask IoU, card against CPU
 SWT_SMALL = (800, 1000)  # a page the CPU takes about ten seconds for
-
-# the card's published peaks (H100 SXM data sheet), for the bounds
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# The ACE spray's work a pixel and sample, whatever implements it: the
-# leanest form of the function known takes 10 issue slots of the f32 pipes
-# (add for dy, FMA for d2, max, add for invd; a channel: one saturating
-# add of pre-scaled values and one FMA) and one rsqrt of the
-# special-function unit, which issues in a slot of its own: 11 slots. The
-# card issues 128 f32 instructions a clock and SM (half its FMA rate in
-# FLOP/s) and 16 special-function results.
-ACE_SLOTS_PER_PIXEL_SAMPLE = 11
-SLOTS_PER_S = F32_OPS_PER_S / 2
-SFU_OPS_PER_S = SLOTS_PER_S / 8
 
 _PALLAS = "libpillowfight_tpu/ops/pallas/"
 _CSRC = "libpillowfight_tpu_torch/csrc/"
@@ -620,7 +619,7 @@ def three_way(fn, kernels: tuple, iters: int = 200) -> dict:
     call (`time.perf_counter` over `iters` calls with no sync between; a
     wrapper that waits for its kernel, or a queue that fills, makes it
     read device time too), ms."""
-    split = device_split(fn)
+    split = device_split(fn, kernels=kernels)
     kernel = kernel_time(split, kernels)
     fn()
     torch.cuda.synchronize()
@@ -668,7 +667,8 @@ def cold_kernel_ms(fn, kernels: tuple) -> float:
         flush.sum()
         fn()
 
-    return round(kernel_time(device_split(cold), kernels), 5)
+    return round(kernel_time(device_split(cold, kernels=kernels), kernels),
+                 5)
 
 
 BLUR_KERNELS = ("blur_strip_kernel", "blur_tile_kernel", "gaussian_sep_kernel")
@@ -895,8 +895,9 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
         if name in large:
             fn600, inputs600 = large[name]
             r600 = {**bound(nbytes(*inputs600, fn600())),
-                    "kernel_ms": kernel_time(device_split(fn600),
-                                             DEVICE_FUNCTIONS[name])}
+                    "kernel_ms": kernel_time(
+                        device_split(fn600, kernels=DEVICE_FUNCTIONS[name]),
+                        DEVICE_FUNCTIONS[name])}
             key600 = held_reading(r600, fn600, name, f"A4 600 dpi x {b}")
             r["at_600dpi"] = r600
             log(f"kernel {name} at A4 600 dpi x {b}: {r600}")
@@ -1229,6 +1230,132 @@ def check_swt(out_gpu, words2, swt2: dict, spec, small) -> None:
     log(f"swt modes 1 and 2 A4 x {CHECK_BATCH}: shape, alpha and letters "
         f"hold; {int(swt2['boxes_ok'].sum())} boxes, {int(changed.sum())} "
         f"pixels drawn, all red on a box perimeter")
+
+
+# -- the card's A4 outputs against the C oracle -----------------------------
+
+# the bars of the reference's own oracle tests (tests/test_golden_oracle.py)
+ORACLE_LSB_BAR = 1          # gaussian, sobel, ace with injected samples
+UNPAPER_IOU_BAR = 0.99      # wiped-region IoU of each unpaper filter
+UNPAPER_DIFFER_BAR = 0.01   # share of pixels that may differ
+ORACLE_ACE_SAMPLES = 16     # at 100 the oracle takes ~26 s at A4
+
+
+def check_oracle(total: dict, dev, card: str) -> None:
+    """gaussian, sobel, canny, the six unpaper filters, swt (mode 0, on a
+    `bar_pages` page; on a `text_pages` page a reading only) and ace (16
+    shared samples injected into both) on one A4 page on the card, each
+    call counted, against the C oracle (`utils.oracle`) at the bars of the
+    reference's oracle tests; a miss raises."""
+    import numpy as np
+
+    import libpillowfight_tpu_torch as pt
+    from libpillowfight_tpu_torch.ops import ace_with_samples
+    from libpillowfight_tpu_torch.utils import oracle
+    from libpillowfight_tpu_torch.utils.pages import (bar_pages,
+                                                      synthetic_pages,
+                                                      text_pages)
+
+    t0 = time.perf_counter()
+    oracle.load()
+    log(f"oracle: built (make -C oracle) and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    page = synthetic_pages(1, A4_H, A4_W)[0]
+    x = torch.from_numpy(page[None]).to(dev)
+
+    def on_card(name: str, fn, expect: list):
+        out, counts = counted(fn, f"oracle phase: {name}", expect)
+        for k in total:
+            total[k] += counts[k]
+        return out[0].cpu().numpy()
+
+    def reference(name: str, *args):
+        t = time.perf_counter()
+        out = getattr(oracle, name)(*args)
+        return out, time.perf_counter() - t
+
+    def lsb(a, b) -> int:
+        return int(np.abs(a[..., :3].astype(np.int32)
+                          - b[..., :3].astype(np.int32)).max())
+
+    for name in ("gaussian", "sobel"):
+        got = on_card(name, lambda: getattr(pt, name)(x),
+                      FACADE_KERNELS[name])
+        want, dt = reference(name, page)
+        d = lsb(got, want)
+        log(f"oracle {name} A4: max {d} LSB (bar {ORACLE_LSB_BAR}; oracle "
+            f"{dt:.1f} s) on {card}")
+        if d > ORACLE_LSB_BAR:
+            raise AssertionError(f"{name}: {d} LSB from the oracle")
+
+    got = on_card("canny", lambda: pt.canny(x), FACADE_KERNELS["canny"])
+    want, dt = reference("canny", page)
+    edges = want[..., 0] > 0
+    differ = int(((got[..., 0] > 0) != edges).sum())
+    bar = max(CANNY_BAR * int(edges.sum()), 2)
+    log(f"oracle canny A4: {differ} of {int(edges.sum())} edge pixels differ "
+        f"(bar {bar:.1f}; oracle {dt:.1f} s) on {card}")
+    if int(edges.sum()) == 0 or differ > bar:
+        raise AssertionError(f"canny: {differ} edge pixels differ from the "
+                             f"oracle")
+
+    for name in ("unpaper_blackfilter", "unpaper_noisefilter",
+                 "unpaper_blurfilter", "unpaper_grayfilter", "unpaper_border",
+                 "unpaper_masks"):
+        got = on_card(name, lambda: getattr(pt, name)(x),
+                      FACADE_KERNELS[name])
+        want, dt = reference(name.removeprefix("unpaper_"), page)
+        wa = (got[..., :3] != page[..., :3]).any(-1)
+        wb = (want[..., :3] != page[..., :3]).any(-1)
+        union = int((wa | wb).sum())
+        iou = float((wa & wb).sum()) / union if union else 1.0
+        n, _ = pt.compare(torch.from_numpy(got)[None],
+                          torch.from_numpy(want)[None])
+        frac = int(n[0]) / (A4_H * A4_W)
+        log(f"oracle {name} A4: wiped-region IoU {iou:.6f} (bar "
+            f"{UNPAPER_IOU_BAR}), {int(n[0])} pixels differ = {frac:.4%} "
+            f"(bar {UNPAPER_DIFFER_BAR:.0%}), {int(wb.sum())} wiped by the "
+            f"oracle ({dt:.1f} s) on {card}")
+        if iou < UNPAPER_IOU_BAR or frac >= UNPAPER_DIFFER_BAR:
+            raise AssertionError(f"{name}: IoU {iou}, {frac:.4%} of pixels "
+                                 f"differ from the oracle")
+
+    def swt_iou(tpage, what: str) -> float:
+        got = on_card(f"swt, {what}",
+                      lambda: pt.swt(torch.from_numpy(tpage[None]).to(dev)),
+                      FACADE_KERNELS["swt"])
+        want, dt = reference("swt", tpage, 0)
+        gm, wm = (got[..., :3] != 255).any(-1), (want[..., :3] != 255).any(-1)
+        iou = float((gm & wm).sum()) / max(float((gm | wm).sum()), 1.0)
+        log(f"oracle swt (mode 0) A4 {what}: letter-mask IoU {iou:.6f} "
+            f"({int(wm.sum())} letter pixels by the oracle, {int(gm.sum())} "
+            f"on the card; oracle {dt:.1f} s) on {card}")
+        if int(wm.sum()) == 0:
+            raise AssertionError(f"swt: the oracle found no letters, {what}")
+        return iou
+
+    iou = swt_iou(bar_pages(1, A4_H, A4_W)[0], "bar letters")
+    if iou < SWT_IOU_BAR:
+        raise AssertionError(f"swt: letter-mask IoU {iou} against the oracle "
+                             f"(bar {SWT_IOU_BAR})")
+    # The reference's own swt reads ~0.9 against the oracle on the 5-px
+    # strokes of text_pages (ROADMAP.md queue 3); the card's swt there is
+    # held bit-identical to its plain version in phase 5. A reading only.
+    swt_iou(text_pages(1, A4_H, A4_W)[0], "text page (5-px strokes)")
+
+    rng = np.random.default_rng(ACE_SEED)
+    sy = rng.integers(0, A4_H, ORACLE_ACE_SAMPLES).astype(np.int32)
+    sx = rng.integers(0, A4_W, ORACLE_ACE_SAMPLES).astype(np.int32)
+    got = on_card("ace", lambda: ace_with_samples(
+        x, torch.from_numpy(sy)[None].to(dev),
+        torch.from_numpy(sx)[None].to(dev), 10.0, 1000.0), ["ace_spray"])
+    want, dt = reference("ace_samples", page, sy, sx, 10.0, 1000.0)
+    d = lsb(got, want)
+    log(f"oracle ace A4, {ORACLE_ACE_SAMPLES} shared samples injected into "
+        f"both: max {d} LSB (bar {ORACLE_LSB_BAR}; oracle {dt:.1f} s) on "
+        f"{card}")
+    if d > ORACLE_LSB_BAR:
+        raise AssertionError(f"ace: {d} LSB from the oracle")
 
 
 def time_path(fn, batches, name: str, card: str) -> float:
@@ -1675,23 +1802,34 @@ def load_tree(root: str, name: str):
     return module
 
 
-def device_split(fn, iters: int = 5) -> dict:
-    """Device time of fn() by kernel name, ms a call (`torch.profiler`)."""
+PROFILE_TRIES = 3
+
+
+def device_split(fn, iters: int = 5, kernels: tuple = ()) -> dict:
+    """Device time of fn() by kernel name, ms a call (`torch.profiler`).
+    With `kernels`, a trace that holds no row of those device functions,
+    which fn() launches every call, lost its kernel records: it is taken
+    again, up to PROFILE_TRIES traces, and the last one is returned."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = (getattr(e, "self_device_time_total", 0)
-                  or getattr(e, "self_cuda_time_total", 0))
-            split[e.key[:70]] = round(us / 1e3 / iters, 5)
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        split = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us = (getattr(e, "self_device_time_total", 0)
+                      or getattr(e, "self_cuda_time_total", 0))
+                split[e.key[:70]] = round(us / 1e3 / iters, 5)
+        if not kernels or kernel_time(split, kernels) > 0:
+            break
+        log(f"profiler trace {attempt + 1} holds no row of {kernels} "
+            f"(rows: {split})")
     return split
 
 
@@ -1730,9 +1868,7 @@ def against(root: str) -> int:
     tace = importlib.import_module("libpillowfight_tpu_torch.ops.ace")
 
     dev = torch.device("cuda", 0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
+    card = ", ".join(card_name_and_power())
     log(card)
     other = load_tree(root, "pft_other")
     o_lb = importlib.import_module("pft_other.ops.cuda.label")
@@ -1990,9 +2126,7 @@ def issue_rates() -> int:
 
     from libpillowfight_tpu_torch import _build
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
+    card = ", ".join(card_name_and_power())
     log(card)
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2044,10 +2178,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = ", ".join(card_name_and_power())
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -2113,6 +2244,9 @@ def main() -> int:
     check_chain(out, words600_cpu, cleanup, "cleanup chain 600 dpi")
     del out, words600, words600_cpu
 
+    # 5b. the card's A4 outputs against the C oracle, each call counted
+    check_oracle(total, dev, card)
+
     # 6. throughput at A4 x 16 (600 dpi: x 4), two distinct dirty batches.
     # swt goes first: its seconds of device work bring the card's clocks
     # up after the CPU-only check above, and the shorter paths are timed
@@ -2156,6 +2290,19 @@ def main() -> int:
               "chain at 600 dpi", card)
     time_sweep_flood(*blackfilter_flood_inputs(words_to_gray(batches[0])), 20,
                      f"A4 600 dpi x {TIME_BATCH_600}, blackfilter inputs")
+    time_path(lambda x: pt.run_pipeline(x, edges), batches,
+              "EDGE_STACK at 600 dpi", card)
+    time_path(lambda x: pt.run_pipeline(x, ace_spec), batches,
+              "ace (100 samples) at 600 dpi", card)
+    batches = [words_on(text_pages(TIME_BATCH_600, A4_600_H, A4_600_W,
+                                   seed=s), dev) for s in (0, 1)]
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    time_path(lambda x: pt.run_pipeline(x, swt_spec), batches,
+              "swt (mode 0) at 600 dpi", card)
+    log(f"swt at 600 dpi x {TIME_BATCH_600} peak device memory: "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    peak = max(peak, torch.cuda.max_memory_allocated(dev))
     del batches
     bw = metrics.measure_peak_hbm_bw(dev)
     log(f"measure_peak_hbm_bw: {bw / 1e9:.1f} GB/s (a 1 GiB device-to-device "
@@ -2172,8 +2319,8 @@ def main() -> int:
     # last: reading the profiler's trace leaves the card idle for seconds
     idle_share(lambda x: pt.run_pipeline(x, swt_spec), text16,
                "swt (mode 0)", swt_ms)
-    log(f"peak device memory: "
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    log(f"peak device memory from phase 6 on: "
+        f"{max(peak, torch.cuda.max_memory_allocated(dev)) / 2**30:.2f} GiB")
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{"name": name, "route": "cuda", "source": src,

@@ -15,6 +15,7 @@ Every C entry takes its pointers and the stream as `void*` and returns
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -81,12 +82,23 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the hashed library (no-op when present)."""
+    """Compile csrc/*.cu into the hashed library (no-op when present).
+    Processes that build at once take turns on an exclusive lock of
+    `_build/build.lock` (released when its holder exits, however it
+    exits): the first compiles, the others find its library."""
     out = library_path()
     if out.exists():
         return out
-    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs, objs = [], []
         for src in sorted(CSRC.glob("*.cu")):
@@ -113,7 +125,6 @@ def build() -> Path:
                                + link.stderr)
         out.with_suffix(".log").write_text("\n".join(logs))
         os.replace(tmp_so, out)  # atomic: a concurrent loader sees all or none
-    return out
 
 
 def resource_usage(source: str) -> list[str]:

@@ -1,13 +1,16 @@
 """The constants of the ported filters.
 
-A copy of `libpillowfight_tpu/core/constants.py` (the gaussian, canny,
-ACE, SWT, unpaper and compare sections): importing the reference module runs its
-package `__init__`, which imports jax. A test pins every value here
-equal to the reference's.
+A copy of `libpillowfight_tpu/core/constants.py` (the pixel model,
+gaussian, canny, ACE, SWT, unpaper and compare sections): importing the
+reference module runs its package `__init__`, which imports jax. A test
+pins every value here equal to the reference's.
 """
 
 PF_WHITE = 0xFF
 PF_BLACK = 0x00
+
+# gray is the unweighted channel mean, (r + g + b) / 3
+GRAYSCALE_MODE = "mean"
 
 GAUSSIAN_DEFAULT_SIGMA = 2.0
 GAUSSIAN_DEFAULT_NB_STDDEV = 5   # 1-D half-width ceil(sigma * nb_stddev)

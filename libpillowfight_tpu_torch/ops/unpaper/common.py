@@ -16,7 +16,7 @@ from ...core.bitmap import (ensure_batched, maybe_unbatch, pages_to_words,
                             wipe_white_words, words_to_gray, words_to_pages)
 from ..cuda.linecount import line_counts
 
-__all__ = ["apply_wipe", "block_counts", "block_sums_u16",
+__all__ = ["apply_wipe", "block_counts", "block_sums", "block_sums_u16",
            "coverage_from_blocks", "dark_mask", "f32", "line_counts",
            "nonwhite_mask", "wipe_white"]
 
@@ -79,6 +79,33 @@ def _block_sums(x: torch.Tensor, size: int, step: int) -> torch.Tensor:
     nbx = _n_blocks(x.shape[2], size, step)
     y = _window_sums(x, size, step, 1, nby)
     return _window_sums(y, size, step, 2, nbx).to(torch.float32)
+
+
+def _fold_windows(x: torch.Tensor, size: int, step: int,
+                  dim: int) -> torch.Tensor:
+    """f32 sums over [i*step, i*step+size) along dim, each a left fold
+    of its window from 0.0, as the reference's `reduce_window` adds."""
+    nb = _n_blocks(x.shape[dim], size, step)
+    shape = list(x.shape)
+    shape[dim] = nb
+    acc = torch.zeros(shape, dtype=torch.float32, device=x.device)
+    if nb == 0:
+        return acc
+    index = [slice(None)] * x.ndim
+    for k in range(size):
+        index[dim] = slice(k, k + (nb - 1) * step + 1, step)
+        acc = acc + x[tuple(index)]
+    return acc
+
+
+def block_sums(x: torch.Tensor, size: int, step: int) -> torch.Tensor:
+    """Strided window sums of an f32 or bool [B,H,W] plane: f32
+    [B,nby,nbx], cell (i,j) covering [i*step, i*step+size) x [j*step,
+    j*step+size) (VALID windows only). Sums H first, then W, as the
+    reference does. On no path of the port: the filters take the exact
+    integer sums of `block_counts` and `block_sums_u16`."""
+    y = _fold_windows(x.to(torch.float32), size, step, 1)
+    return _fold_windows(y, size, step, 2)
 
 
 def block_counts(x: torch.Tensor, size: int, step: int) -> torch.Tensor:

@@ -9,6 +9,10 @@
 * `roofline`             — achieved-vs-peak bandwidth for a kernel given
   its bytes-touched model.
 * `trace`                — a torch.profiler context writing a Chrome trace.
+* `card_name_and_power`  — the card's name and power limit (nvidia-smi).
+* `HBM_BYTES_PER_S`, `F32_OPS_PER_S`, `SLOTS_PER_S`, `SFU_OPS_PER_S`,
+  `ACE_SLOTS_PER_PIXEL_SAMPLE` — the card's published peaks and the ACE
+  spray's work, from which bounds are reckoned.
 """
 
 from __future__ import annotations
@@ -16,10 +20,25 @@ from __future__ import annotations
 import contextlib
 import os
 import statistics
+import subprocess
 import time
 from dataclasses import dataclass, field
 
 import torch
+
+# the card's published peaks (H100 SXM data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# The ACE spray's work a pixel and sample, whatever implements it: the
+# leanest form of the function known takes 10 issue slots of the f32 pipes
+# (add for dy, FMA for d2, max, add for invd; a channel: one saturating
+# add of pre-scaled values and one FMA) and one rsqrt of the
+# special-function unit, which issues in a slot of its own: 11 slots. The
+# card issues 128 f32 instructions a clock and SM (half its FMA rate in
+# FLOP/s) and 16 special-function results.
+ACE_SLOTS_PER_PIXEL_SAMPLE = 11
+SLOTS_PER_S = F32_OPS_PER_S / 2
+SFU_OPS_PER_S = SLOTS_PER_S / 8
 
 # Peak device-memory bandwidth (bytes/s): unset until `set_peak_hbm_bw`
 # or the first `roofline`, which measures it on the card.
@@ -98,6 +117,18 @@ def measure_peak_hbm_bw(device=None) -> float:
         end.record()
         end.synchronize()
     return 2 * _COPY_BYTES * _COPY_ITERS / (start.elapsed_time(end) / 1e3)
+
+
+def card_name_and_power() -> tuple[str, str]:
+    """(name, power limit) of the first card as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` gives them, for
+    example ("NVIDIA H100 80GB HBM3", "700.00 W"); raises where
+    nvidia-smi does not run."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"],
+                       capture_output=True, text=True, check=True)
+    name, power = r.stdout.strip().splitlines()[0].rsplit(",", 1)
+    return name.strip(), power.strip()
 
 
 @dataclass

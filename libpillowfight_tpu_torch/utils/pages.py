@@ -9,7 +9,8 @@ lines, and closes the black border into a frame, so that SWT finds
 letters on it: canny's thresholds are fractions of the page's strongest
 gradient, and on a page that is light up to its rim that is the rim
 itself (the blur and the gradient pad with zeros), twice as strong as
-any glyph's edge. `flood_cases`, `label_cases`, `blur_cases`,
+any glyph's edge. `bar_pages` repeats the letters of the reference's
+SWT oracle test over a page. `flood_cases`, `label_cases`, `blur_cases`,
 `line_count_cases`, `pack_cases`, `unpack_cases` and `cert_cases` (also
 the ball count's) are the planes on which the kernels are held to their
 plain versions on the card: the CPU tests hold the plain versions to the
@@ -65,6 +66,25 @@ def text_pages(b: int, h: int, w: int, seed: int = 0) -> np.ndarray:
             elif kind == 2:  # T: a bar across the top
                 pages[:, top: top + s, x: x + 17, :3] = 15
     return pages
+
+
+BAR_W, BAR_H, BAR_PITCH, BAR_ROW_PITCH = 6, 50, 20, 80
+
+
+def bar_pages(b: int, h: int, w: int) -> np.ndarray:
+    """uint8 RGBA [b,h,w,4]: the letters of the reference's SWT oracle
+    test (`tests/test_golden_oracle.py` `_text_page`: black bars 6 px
+    wide and 50 px tall on white, and light gray shading that the letter
+    filters must ignore) repeated over the page, one bar every 20 px in
+    rows 80 px apart."""
+    g = np.full((h, w), 255, np.uint8)
+    for y in range(25, h - BAR_H - 10, BAR_ROW_PITCH):
+        for x in range(20, w - 30, BAR_PITCH):
+            g[y: y + BAR_H, x: x + BAR_W] = 0
+    for y in range(80, h - 20, 400):
+        g[y: y + 12, 8: 40] = 210
+    page = np.stack([g, g, g, np.full_like(g, 255)], axis=-1)
+    return np.broadcast_to(page, (b, h, w, 4)).copy()
 
 
 def _snake(h: int, w: int, x0: int, arms: int, vertical: bool):
