@@ -107,9 +107,14 @@
      both copies in, the files in the page cache), the time spent
      waiting on the source, and the device's idle share from one profiled
      chunk; the files are deleted afterwards;
-8. prints the kernels line (JSON; beside the contract's keys each kernel
+8. runs the headline measurement of `bench_torch.py` once at A4 x 16
+   (its checked page held to the plain chain of phase 5) and the profile
+   tools of `libpillowfight_tpu_torch/tools/` at their default sizes
+   (`profile_chain` and `profile_blackfilter` also at A4 600 dpi x 2),
+   each counted, each record printed, every stage's time above 0;
+9. prints the kernels line (JSON; beside the contract's keys each kernel
    has `kernel_ms`, `other_device_ms` and `host_ms`; `launches` sums the
-   counted paths of 5, 5b and 7), then the result line (JSON), last.
+   counted paths of 5, 5b, 7 and 8), then the result line (JSON), last.
 
 Any failed phase raises, and the exit code is then non-zero.
 
@@ -144,6 +149,7 @@ import time
 
 import torch
 
+from libpillowfight_tpu_torch.tools.profile_swt import swt_stages
 from libpillowfight_tpu_torch.utils.metrics import (
     ACE_SLOTS_PER_PIXEL_SAMPLE, F32_OPS_PER_S, HBM_BYTES_PER_S, SFU_OPS_PER_S,
     card_name_and_power)
@@ -243,94 +249,6 @@ def blackfilter_flood_inputs(gray):
     seeds = coverage_from_blocks(counts >= f32(380.0, counts), dark.shape,
                                  20, 5) & dark
     return seeds, dark
-
-
-class Stages:
-    """Device time by stage name, from CUDA events around each stage."""
-
-    def __init__(self):
-        self.ms = {}
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        yield
-        end.record()
-        torch.cuda.synchronize()
-        self.ms[name] = self.ms.get(name, 0.0) + start.elapsed_time(end)
-
-
-def swt_stages(words: torch.Tensor, max_len: int = 128) -> dict:
-    """SWT taken stage by stage through the port's own stage functions,
-    as `swt` strings them together: the planes it builds on the way (the
-    label kernel's inputs, the letter mask, the boxes) and each stage's
-    device time."""
-    from libpillowfight_tpu_torch.core.bitmap import words_to_gray
-    from libpillowfight_tpu_torch.ops import swt as S
-    from libpillowfight_tpu_torch.ops.canny import (canny_gradients,
-                                                    canny_strong_weak)
-    from libpillowfight_tpu_torch.ops.morph import (flood_reach,
-                                                    label_components_links)
-
-    st = Stages()
-    b, h, w = words.shape
-    with st("gray"):
-        gray = words_to_gray(words)
-    with st("gradients and edges"):
-        gx, gy = canny_gradients(gray)
-        strong, weak = canny_strong_weak(gx, gy)
-        edges = flood_reach(strong, weak)
-    step = max(1, S._MAPS_CHUNK_PIXELS // (h * w))
-    minus, plus = [], []
-    for i in range(0, b, step):
-        part = slice(i, i + step)
-        with st("width maps, pass 1"):
-            edge_cls = S._edge_classes(edges[part], gx[part], gy[part])
-            chains, maps, a_enc = S._width_pass(edge_cls, max_len)
-        with st("ray medians"):
-            med_map = {s: S._ray_medians(maps[s], a_enc[s]) for s in (-1, 1)}
-        with st("width maps, pass 2"):
-            res = S._median_pass(edge_cls, chains, maps, med_map, max_len)
-        minus.append(res[-1])
-        plus.append(res[1])
-        del edge_cls, chains, maps, a_enc, med_map, res
-    del gx, gy
-    minus, plus = torch.cat(minus), torch.cat(plus)
-    max_runs, max_letters = max(h * w // 32, 1024), max(h * w // 2048, 1024)
-    valid, links = [], {d: [] for d in S.OFFSETS}
-    with st("labelling"):  # links and labels alone, as the letter pass makes them
-        med = S._median_gray(gray)
-        for i in range(b):
-            neg = gray[i] < med[i]
-            sw = torch.where(neg, minus[i], torch.where(
-                gray[i] > med[i], plus[i], S._INF))
-            ok = sw < S._INF
-            page_links = S._letter_links(sw, ok, neg)
-            label_components_links(ok[None], page_links)
-            if b <= CHECK_BATCH:  # kept for the label kernel's check
-                valid.append(ok[None])
-                for d in S.OFFSETS:
-                    links[d].append(page_links[d])
-            del neg, sw, ok, page_links
-    with st("letter pass (labelling included)"):
-        letter, boxes, boxes_ok, n_runs, n_letters = S._letter_mask(
-            gray, minus, plus, max_letters, max_runs)
-    del minus, plus
-    with st("output"):
-        alpha = words & -0x1000000
-        out = S._gray_word(torch.where(
-            letter, torch.zeros_like(words), 255), alpha)
-    st.ms["letter statistics"] = (st.ms.pop("letter pass (labelling included)")
-                                  - st.ms["labelling"])
-    return {"ms": st.ms, "gray": gray, "strong": strong, "weak": weak,
-            "valid": torch.cat(valid) if valid else None,
-            "links": {d: torch.cat(v) for d, v in links.items()} if valid
-            else None,
-            "letter": letter, "boxes": boxes, "boxes_ok": boxes_ok,
-            "n_runs": n_runs, "n_letters": n_letters, "max_runs": max_runs,
-            "max_letters": max_letters, "out": out}
 
 
 def packed_flood(seeds, mask, leap: int):
@@ -1096,8 +1014,9 @@ def counted(fn, name: str, expect: list) -> tuple:
     return out, counts
 
 
-def check_chain(out_gpu, words_cpu, spec, name: str) -> None:
-    """Bit-identical to the plain chain on the CPU, and a real wipe."""
+def check_chain(out_gpu, words_cpu, spec, name: str) -> torch.Tensor:
+    """Bit-identical to the plain chain on the CPU, and a real wipe.
+    Returns the plain chain's output."""
     import libpillowfight_tpu_torch as pt
 
     t0 = time.perf_counter()
@@ -1114,6 +1033,7 @@ def check_chain(out_gpu, words_cpu, spec, name: str) -> None:
                              f"wiped {changed} pixels")
     log(f"{name} {tuple(words_cpu.shape)}: bit-identical to the plain "
         f"chain ({changed} pixels wiped)")
+    return out_cpu
 
 
 def check_edges(out_gpu, words2_cpu, spec) -> None:
@@ -1786,6 +1706,61 @@ def config5(total: dict, dev, card: str) -> None:
         f"{max(0.0, 1 - busy_us / 1e3 / chunk_ms):.1%}")
 
 
+# -- the measurement tools ---------------------------------------------------
+
+def check_tools(total: dict, plain_page: torch.Tensor) -> None:
+    """Phase 8: `bench_torch.run` once at full size, its checked page held
+    to phase 5's plain chain (seed 0, page 0), then the profile tools at
+    their default sizes (the chain and the blackfilter also at A4 600 dpi
+    x 2); each record printed, each launch counted, every time a stage
+    reads above 0. The records go to chiprun_out/smoke_tools_torch.json."""
+    import bench_torch
+    from libpillowfight_tpu_torch.tools import (
+        profile_blackfilter, profile_chain, profile_chain_parts,
+        profile_filters, profile_flood, timing)
+
+    at600 = dict(b=2, h=A4_600_H, w=A4_600_W)
+    packed = ["pack_rows", "flood_round", "unpack_rows"]
+    runs = {  # name -> (the run, the kernels it must launch)
+        "bench_torch": (lambda: bench_torch.run(plain=plain_page),
+                        CHAIN_KERNELS),
+        "profile_chain": (profile_chain.measure, CHAIN_KERNELS),
+        "profile_chain at 600 dpi": (
+            lambda: profile_chain.measure(**at600),
+            ["line_counts", "noise_cert", "flood_sweep"]),
+        "profile_chain_parts": (profile_chain_parts.measure,
+                                packed + ["noise_cert"]),
+        "profile_blackfilter": (profile_blackfilter.measure,
+                                packed + ["flood_sweep"]),
+        "profile_blackfilter at 600 dpi": (
+            lambda: profile_blackfilter.measure(**at600), ["flood_sweep"]),
+        "profile_flood": (profile_flood.measure, packed + ["flood_sweep"]),
+        "profile_filters": (profile_filters.measure,
+                            packed + ["gaussian_sep", "noise_cert",
+                                      "line_counts", "label_links",
+                                      "ace_spray"]),
+    }
+    records = {}
+    for name, (fn, kernels) in runs.items():
+        t0 = time.perf_counter()
+        rec, counts = counted(fn, name, kernels)
+        for k in total:
+            total[k] += counts[k]
+        if name == "bench_torch":
+            times = {k: rec[k] for k in ("value", "vs_baseline", "ms_min",
+                                         "ms_max")}
+        else:
+            times = {f"{key} {k}": v for key in ("ms", "device_ms")
+                     for k, v in rec.get(key, {}).items()}
+        bad = {k: v for k, v in times.items()
+               if not isinstance(v, float) or v <= 0}
+        if bad:
+            raise AssertionError(f"{name}: times not above 0: {bad}")
+        log(f"{name} ({time.perf_counter() - t0:.1f} s): {json.dumps(rec)}")
+        records[name] = rec
+    log(f"records: {timing.write('smoke_tools', records)}")
+
+
 def load_tree(root: str, name: str):
     """The package of another tree of this repository, loaded beside this
     one under the module name `name` (its relative imports stay inside
@@ -1962,7 +1937,8 @@ def against(root: str) -> int:
     del gray600, x, plane
 
     # the label kernel: SWT's planes, then the non-white plane
-    swt2 = swt_stages(words_on(text_pages(CHECK_BATCH, A4_H, A4_W), dev))
+    swt2 = swt_stages(words_on(text_pages(CHECK_BATCH, A4_H, A4_W), dev),
+                      keep_links=True)
     valid, links = swt2["valid"], swt2["links"]
     del swt2
     nonwhite = nonwhite_mask(words_to_gray(words2))
@@ -2206,7 +2182,7 @@ def main() -> int:
     words600 = words600_cpu.to(dev)
 
     # 4. each kernel vs its plain version
-    swt2 = swt_stages(text2)
+    swt2 = swt_stages(text2, keep_links=True)
     timings = check_kernels(words2, swt2, words600)
 
     # 5. the paths on the card, each counted
@@ -2222,7 +2198,7 @@ def main() -> int:
     out = drive(cleanup, "cleanup chain",
                 ["line_counts", "pack_rows", "unpack_rows", "flood_round",
                  "noise_cert"])
-    check_chain(out, words2_cpu, cleanup, "cleanup chain")
+    plain2 = check_chain(out, words2_cpu, cleanup, "cleanup chain")
     out = drive(edges, "edge stack",
                 ["gaussian_sep", "gaussian_sep[hw10]", "pack_rows",
                  "flood_round", "unpack_rows"])
@@ -2316,6 +2292,9 @@ def main() -> int:
         config5(total, dev, card)
     finally:
         shutil.rmtree(corpus_dir(), ignore_errors=True)
+    # 8. the headline measurement and the profile tools, each counted
+    check_tools(total, plain2[:1])
+    del plain2
     # last: reading the profiler's trace leaves the card idle for seconds
     idle_share(lambda x: pt.run_pipeline(x, swt_spec), text16,
                "swt (mode 0)", swt_ms)

@@ -18,8 +18,11 @@ and its timing protocol).
 
 Protocol: every iteration takes a fresh, dirty batch (two distinct
 batches in turns: an output never feeds the next input), after one
-warm-up call; a record keeps the median. An iteration is the CUDA-event
-time around one call, read after a synchronize. `device_ms` is
+warm-up call (config 3: `timing.time_chain`, the measurement of
+`bench_torch.py`, after seconds of chain calls; config 6:
+`profile_filters.filter_times`); a record keeps the median. An
+iteration is the CUDA-event time around one call, read after a
+synchronize. `device_ms` is
 `utils.metrics.device_time` (calls back to back). The roofline's peak is
 the card's copy bandwidth, measured by
 `utils.metrics.measure_peak_hbm_bw`. Config 4 is also held to the ACE
@@ -51,22 +54,18 @@ import argparse
 import functools
 import json
 import statistics
-import time
 from pathlib import Path
 
 import torch
 
-from ..core.bitmap import pages_to_words
-from ..ops import ace, canny, gaussian, sobel
-from ..ops import unpaper
+from ..ops import ace, canny, sobel
 from ..ops.swt import swt
 from ..parallel.batch import map_chunked
 from ..parallel.pipeline import DOCUMENT_CLEANUP, compile_pipeline
 from ..utils import metrics, oracle
-from ..utils.pages import synthetic_pages
+from . import profile_filters, timing
+from .timing import A4, A4_600
 
-A4 = (3508, 2480)       # 300 dpi A4, ~8.7 MP
-A4_600 = (7016, 4960)   # 600 dpi A4, ~34.8 MP
 CANNY_CHUNK = 16
 ACE_SAMPLES = 100       # ace's default nb_samples
 
@@ -79,62 +78,9 @@ SOL_BYTES_PER_PX = 8.0
 _REPO = Path(__file__).resolve().parents[2]
 DEFAULT_OUT = "chiprun_out/bench_detail_torch.json"
 
-def _device(device) -> torch.device:
-    dev = torch.device("cuda", 0) if device is None else torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                               "plain versions on the CPU")
-        torch.cuda.init()  # the allocator's statistics exist from here on
-    return dev
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def _timed(fn, batches, iters: int, dev: torch.device) -> float:
-    """Median seconds a call: one warm-up, then `iters` calls, each on
-    the next of the batches in turn; on the card each call is timed by
-    CUDA events read after a synchronize, on the CPU by the host clock."""
-    fn(batches[0])
-    _sync(dev)
-    times = []
-    for i in range(iters):
-        x = batches[i % len(batches)]
-        if dev.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(x)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / 1e3)
-        else:
-            t0 = time.perf_counter()
-            out = fn(x)
-            times.append(time.perf_counter() - t0)
-        del out
-    return statistics.median(times)
-
-
-def _device_time(fn, x, dev: torch.device, iters: int = 3):
-    """`metrics.device_time` on the card; None on the CPU."""
-    if dev.type != "cuda":
-        return None
-    return metrics.device_time(fn, x, iters=iters)
-
-
-def _page_batches(b: int, h: int, w: int, dev: torch.device, n: int = 2):
-    """n distinct dirty batches of uint8 RGBA pages on dev."""
-    return [torch.from_numpy(synthetic_pages(b, h, w, seed=s)).to(dev)
-            for s in range(n)]
-
-
-def _word_batches(b: int, h: int, w: int, dev: torch.device, n: int = 2):
-    """The same pages as int32 words [b, h, w]."""
-    return [pages_to_words(p) for p in _page_batches(b, h, w, dev, n)]
+    """Median seconds a call of `timing.timed_calls`."""
+    return statistics.median(timing.timed_calls(fn, batches, iters, dev)[0])
 
 
 def _roofline_fields(rec: dict, dt: float, n_px: int, dev: torch.device,
@@ -191,9 +137,9 @@ def _with_oracle(rec: dict, name: str, h: int, w: int,
 
 
 def _config1(quick, dev, h, w):  # sobel, one A4 page
-    xs = _page_batches(1, h, w, dev)
+    xs = timing.page_batches(1, h, w, dev)
     dt = _timed(sobel, xs, 3, dev)
-    dtd = _device_time(sobel, xs[0], dev)
+    dtd = timing.device_seconds(sobel, xs[0], dev)
     mp = h * w / 1e6
     return _with_oracle(_roofline_fields(
         {"config": "sobel_1page_300dpi", "mp_per_s_chip": mp / dt,
@@ -205,13 +151,13 @@ def _config2(quick, dev, h, w):  # gaussian + full canny, 64 pages
     b = 8 if quick else 64
     # canny holds ~6 f32 planes a page: at 64 A4 pages that is ~13 GB, so
     # the batch goes through in chunks of 16
-    xs = _page_batches(b, h, w, dev)
+    xs = timing.page_batches(b, h, w, dev)
 
     def fn(p):
         return map_chunked(canny, p, CANNY_CHUNK)
 
     dt = _timed(fn, xs, 3, dev)
-    dtd = _device_time(fn, xs[0], dev, iters=2)
+    dtd = timing.device_seconds(fn, xs[0], dev, iters=2)
     mp = b * h * w / 1e6
     return _with_oracle(_roofline_fields(
         {"config": "canny_batch64", "mp_per_s_chip": mp / dt,
@@ -223,10 +169,10 @@ def _config2(quick, dev, h, w):  # gaussian + full canny, 64 pages
 def _config3(quick, dev, h, w):  # the unpaper chain, 16 x 16 pages
     b = 8 if quick else 16
     chunks = 2 if quick else 16
-    xs = _word_batches(b, h, w, dev)
-    fn = compile_pipeline(DOCUMENT_CLEANUP)
-    dt = _timed(fn, xs, chunks, dev)
-    dtd = _device_time(fn, xs[0], dev)
+    xs = timing.word_batches(b, h, w, dev)
+    dt = statistics.median(timing.time_chain(xs, chunks, dev)[0])
+    dtd = timing.device_seconds(compile_pipeline(DOCUMENT_CLEANUP), xs[0],
+                                dev)
     mp = b * h * w / 1e6
     return _with_oracle(_roofline_fields(
         {"config": "unpaper_chain_256pages", "mp_per_s_chip": mp / dt,
@@ -237,9 +183,9 @@ def _config3(quick, dev, h, w):  # the unpaper chain, 16 x 16 pages
 
 
 def _config4(quick, dev, h, w):  # ACE on a 600 dpi colour page
-    xs = _page_batches(1, h, w, dev)
+    xs = timing.page_batches(1, h, w, dev)
     dt = _timed(ace, xs, 3, dev)
-    dtd = _device_time(ace, xs[0], dev, iters=2)
+    dtd = timing.device_seconds(ace, xs[0], dev, iters=2)
     mp = h * w / 1e6
     rec = _with_oracle(_roofline_fields(
         {"config": "ace_600dpi", "mp_per_s_chip": mp / dt,
@@ -260,13 +206,13 @@ def _config4(quick, dev, h, w):  # ACE on a 600 dpi colour page
 
 def _config5(quick, dev, h, w):  # swt after the cleanup chain, one page
     cleanup = compile_pipeline(DOCUMENT_CLEANUP)
-    xs = _word_batches(1, h, w, dev)
+    xs = timing.word_batches(1, h, w, dev)
 
     def fn(p):
         return swt(cleanup(p))
 
     dt = _timed(fn, xs, 2, dev)
-    dtd = _device_time(fn, xs[0], dev, iters=2)
+    dtd = timing.device_seconds(fn, xs[0], dev, iters=2)
     mp = h * w / 1e6
     return _with_oracle(_roofline_fields(
         {"config": "swt_plus_cleanup", "mp_per_s_chip": mp / dt,
@@ -275,29 +221,19 @@ def _config5(quick, dev, h, w):  # swt after the cleanup chain, one page
         dt, h * w, dev, n_stages=7, dt_device=dtd), "swt", h, w)
 
 
-FILTERS = {
-    "gaussian": gaussian,
-    "sobel": sobel,
-    "canny": canny,
-    "ace": ace,
-    "unpaper_blackfilter": unpaper.unpaper_blackfilter,
-    "unpaper_noisefilter": unpaper.unpaper_noisefilter,
-    "unpaper_blurfilter": unpaper.unpaper_blurfilter,
-    "unpaper_grayfilter": unpaper.unpaper_grayfilter,
-    "unpaper_border": unpaper.unpaper_border,
-    "unpaper_masks": unpaper.unpaper_masks,
-}
+# config 6: every filter but swt, which config 5 times
+FILTERS = {name: fn for name, fn in profile_filters.FILTERS.items()
+           if name != "swt"}
 
 
 def _config6(quick, dev, h, w):  # every filter alone on one batch
     b = 2 if quick else 8
-    xs = _page_batches(b, h, w, dev)
+    xs = timing.page_batches(b, h, w, dev)
     n_px = b * h * w
     mp = n_px / 1e6
     per = {}
     for name, fn in FILTERS.items():
-        dt = _timed(fn, xs, 3, dev)
-        dtd = _device_time(fn, xs[0], dev, iters=2)
+        dt, dtd = profile_filters.filter_times(fn, xs, 3, dev)
         per[name] = _with_oracle(_roofline_fields(
             {"mp_per_s_chip": mp / dt, "ms_per_batch": dt * 1e3},
             dt, n_px, dev, dt_device=dtd), name, h, w)
@@ -320,7 +256,7 @@ def run_config(idx: int, quick: bool, device=None, shape=None) -> dict:
     `quick`)."""
     if idx not in _CONFIGS:
         raise ValueError(f"no config {idx}")
-    dev = _device(device)
+    dev = timing.device(device)
     if shape is None:
         h, w = A4_600 if idx == 4 else A4
         shape = (h // 2, w // 2) if quick else (h, w)
@@ -343,7 +279,7 @@ def main(argv=None) -> None:
     ap.add_argument("--out", type=str, default=DEFAULT_OUT,
                     help="path of the records, relative to the repository")
     args = ap.parse_args(argv)
-    dev = _device(None)
+    dev = timing.device(None)
 
     path = _REPO / args.out
     records = json.loads(path.read_text()) if path.exists() else []
