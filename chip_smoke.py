@@ -107,6 +107,15 @@
      both copies in, the files in the page cache), the time spent
      waiting on the source, and the device's idle share from one profiled
      chunk; the files are deleted afterwards;
+7b. drives the distribution layer on the card, each call counted:
+   `parallel.dryrun_multichip(4, devices=["cuda:0"] * 4)` (and over
+   every card where there are several); the rows-sharded chain at A4 x 4
+   on (2, 2) shards and at A4 600 dpi x 2 on (1, 2) shards (the sweep
+   flood) and (1, 4) shards (the packed flood), bit-identical to the
+   unsharded chain, with the flood's exchange rounds; `sharded_stencil`
+   of the blur on A4 gray planes against the unsharded blur; the
+   rows-sharded chain timed beside the unsharded one at A4 x 16 on (1, 2)
+   shards of one card;
 8. runs the headline measurement of `bench_torch.py` once at A4 x 16
    (its checked page held to the plain chain of phase 5) and the profile
    tools of `libpillowfight_tpu_torch/tools/` at their default sizes
@@ -114,7 +123,7 @@
    each counted, each record printed, every stage's time above 0;
 9. prints the kernels line (JSON; beside the contract's keys each kernel
    has `kernel_ms`, `other_device_ms` and `host_ms`; `launches` sums the
-   counted paths of 5, 5b, 7 and 8), then the result line (JSON), last.
+   counted paths of 5, 5b, 7, 7b and 8), then the result line (JSON), last.
 
 Any failed phase raises, and the exit code is then non-zero.
 
@@ -241,13 +250,12 @@ def words_on(pages, dev) -> torch.Tensor:
 def blackfilter_flood_inputs(gray):
     """(seeds, dark) of the blackfilter's flood, as the chain builds
     them."""
-    from libpillowfight_tpu_torch.ops.unpaper.common import (
-        block_counts, coverage_from_blocks, dark_mask, f32)
+    from libpillowfight_tpu_torch.ops.unpaper.blackfilter import (
+        blackfilter_seeds)
+    from libpillowfight_tpu_torch.ops.unpaper.common import dark_mask
 
     dark = dark_mask(gray)
-    counts = block_counts(dark, 20, 5)
-    seeds = coverage_from_blocks(counts >= f32(380.0, counts), dark.shape,
-                                 20, 5) & dark
+    seeds = blackfilter_seeds(dark)
     return seeds, dark
 
 
@@ -1708,6 +1716,136 @@ def config5(total: dict, dev, card: str) -> None:
 
 # -- the measurement tools ---------------------------------------------------
 
+# the kernels of the rows-sharded chain, by the flood's route
+SHARDED_PACKED = ["line_counts", "pack_rows", "flood_round", "unpack_rows",
+                  "noise_cert"]
+SHARDED_SWEEP = ["line_counts", "flood_sweep", "flood_round", "unpack_rows",
+                 "noise_cert"]
+
+
+def check_rows_sharded(total: dict, dev, card: str) -> None:
+    """Phase 7b: the distribution layer on the card, each call counted:
+    the dry run on cuda:0 x 4 (and over every card where there are
+    several), the rows-sharded chain bit-identical to the unsharded chain
+    at A4 x 4 on (2, 2) shards and at A4 600 dpi x 2 on (1, 2) (the sweep
+    flood) and (1, 4) (the packed flood), `sharded_stencil` of the blur
+    on A4 gray planes against the unsharded blur, and the sharded chain
+    timed beside the unsharded one at A4 x 16 on (1, 2) shards of cuda:0."""
+    import libpillowfight_tpu_torch as pt
+    from libpillowfight_tpu_torch.core.bitmap import words_to_gray
+    from libpillowfight_tpu_torch.ops.gaussian import gaussian_on_matrix
+    from libpillowfight_tpu_torch.parallel import (dryrun_multichip,
+                                                   make_mesh, shard_pages,
+                                                   sharded_stencil, spatial)
+    from libpillowfight_tpu_torch.utils.pages import (snake_pages,
+                                                      synthetic_pages)
+
+    t0 = time.perf_counter()
+    cleanup = pt.normalize_spec(pt.DOCUMENT_CLEANUP)
+    n_cards = torch.cuda.device_count()
+
+    def run(fn, name, expect):
+        out, counts = counted(fn, name, expect)
+        for k in total:
+            total[k] += counts[k]
+        return out, counts
+
+    def one_card(pages_axis, rows):
+        n = pages_axis * rows
+        return make_mesh(n, rows=rows, devices=[dev] * n)
+
+    runs = [(4, ["cuda:0"] * 4, "cuda:0 x 4")]
+    if n_cards > 1:
+        runs.append((n_cards, None, f"{n_cards} cards"))
+    for n, devs, what in runs:
+        out, _ = run(lambda: dryrun_multichip(n, devices=devs),
+                     f"dryrun_multichip({n}) on {what}",
+                     ["line_counts", "pack_rows", "flood_round",
+                      "unpack_rows", "noise_cert", "gaussian_sep"])
+        log(f"dryrun_multichip({n}) on {what}: the three checks held; "
+            f"flood exchange rounds {out['flood_rounds']}, stencil max "
+            f"abs err {out['stencil_max_abs_err']}")
+
+    a4, a4_600 = (A4_H, A4_W), (A4_600_H, A4_600_W)
+    cases = [("A4 x 4", synthetic_pages(4, *a4), one_card(2, 2),
+              SHARDED_PACKED, "pack_rows")]
+    for rows, expect, route in ((2, SHARDED_SWEEP, "flood_sweep"),
+                                (4, SHARDED_PACKED, "pack_rows")):
+        cases.append(("A4 600 dpi x 2", synthetic_pages(2, *a4_600),
+                      one_card(1, rows), expect, route))
+    # the snake's flood crosses every boundary once an arm: many rounds
+    cases += [("snake A4 x 2", snake_pages(2, *a4), one_card(1, 4),
+               SHARDED_PACKED, "pack_rows"),
+              ("snake A4 600 dpi x 1", snake_pages(1, *a4_600),
+               one_card(1, 2), SHARDED_SWEEP, "flood_sweep")]
+    if n_cards > 1:
+        cases.append(("A4 x 4", synthetic_pages(4, *a4),
+                      make_mesh(n_cards, rows=n_cards), SHARDED_PACKED,
+                      "pack_rows"))
+    for name, pages, mesh, expect, route in cases:
+        words = words_on(pages, dev)
+        want = pt.run_pipeline(words, cleanup)
+        x = shard_pages(words, mesh)
+        grid = f"{tuple(mesh.devices.shape)} on " + ", ".join(
+            sorted({str(d) for d in mesh.devices.flat}))
+        got, counts = run(lambda: pt.run_pipeline(x, cleanup).gather(dev),
+                          f"rows-sharded chain {name} {grid}", expect)
+        other = {"flood_sweep": "pack_rows", "pack_rows": "flood_sweep"}[route]
+        if counts[other]:
+            raise AssertionError(f"rows-sharded chain {name} {grid}: "
+                                 f"{other} launched beside {route}")
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"rows-sharded chain {name} {grid} differs from the "
+                f"unsharded chain on {int((got != want).sum())} pixels")
+        if name.startswith("snake") and min(spatial.flood_rounds) <= \
+                mesh.devices.shape[1]:
+            raise AssertionError(f"{name} {grid}: exchange rounds "
+                                 f"{spatial.flood_rounds}, expected more "
+                                 f"than the row shards")
+        log(f"rows-sharded chain {name} {grid}: bit-identical to the "
+            f"unsharded chain on the card; row shards "
+            f"{[b - a for a, b in zip(x.row_offsets, x.row_offsets[1:])]}, "
+            f"the blackfilter's "
+            f"flood by {route}, exchange rounds a page column "
+            f"{spatial.flood_rounds}")
+        del words, want, x, got, pages
+
+    gray = words_to_gray(words_on(synthetic_pages(2, A4_H, A4_W), dev))
+    mesh = one_card(1, 4)
+    got, _ = run(lambda: sharded_stencil(
+        lambda t: gaussian_on_matrix(t, 2.0, 5), mesh, 10)(gray).gather(dev),
+        "sharded_stencil(gaussian) A4 x 2 on (1, 4)",
+        ["gaussian_sep", "gaussian_sep[hw10]"])
+    want = gaussian_on_matrix(gray, 2.0, 5)
+    err = float((got - want).abs().max())
+    if not err <= 1e-3:
+        raise AssertionError(f"sharded_stencil off the unsharded blur by "
+                             f"{err}")
+    log(f"sharded_stencil(gaussian sigma 2, halo 10) A4 x 2 gray on (1, 4): "
+        f"{'bit-identical to' if torch.equal(got, want) else 'not bit-identical to'} "
+        f"the unsharded blur, max abs err {err}")
+    del gray, got, want
+
+    batches = [words_on(synthetic_pages(TIME_BATCH, A4_H, A4_W, seed=s), dev)
+               for s in (0, 1)]
+    mesh = one_card(1, 2)
+    plain_ms = time_path(lambda b: pt.run_pipeline(b, cleanup), batches,
+                         "chain, unsharded", card)
+    ms = time_path(lambda b: pt.run_pipeline(shard_pages(b, mesh),
+                                             cleanup).gather(dev),
+                   batches, "chain, rows-sharded on (1, 2) shards of cuda:0 "
+                   "(shard_pages and gather included)", card)
+    log(f"rows-sharded chain A4 x {TIME_BATCH} on (1, 2) shards of one card: "
+        f"{ms:.2f} ms beside {plain_ms:.2f} ms unsharded, "
+        f"{ms / plain_ms:.2f}x (a reading: one card does both shards' work, "
+        f"the halos and the exchange rounds) on {card}")
+    if n_cards == 1:
+        log("one card: no cross-card copy was exercised (every shard on "
+            "cuda:0)")
+    log(f"phase 7b: {time.perf_counter() - t0:.1f} s")
+
+
 def check_tools(total: dict, plain_page: torch.Tensor) -> None:
     """Phase 8: `bench_torch.run` once at full size, its checked page held
     to phase 5's plain chain (seed 0, page 0), then the profile tools at
@@ -2292,6 +2430,8 @@ def main() -> int:
         config5(total, dev, card)
     finally:
         shutil.rmtree(corpus_dir(), ignore_errors=True)
+    # 7b. the distribution layer, each call counted
+    check_rows_sharded(total, dev, card)
     # 8. the headline measurement and the profile tools, each counted
     check_tools(total, plain2[:1])
     del plain2

@@ -15,6 +15,19 @@ from .common import (apply_wipe, block_counts, coverage_from_blocks,
                      dark_mask, f32)
 
 
+def blackfilter_seeds(dark: torch.Tensor,
+                      scan_size: int = C.BLACKFILTER_SCAN_SIZE,
+                      scan_step: int = C.BLACKFILTER_SCAN_STEP,
+                      scan_threshold: float = C.BLACKFILTER_SCAN_THRESHOLD
+                      ) -> torch.Tensor:
+    """The flood's seeds: dark pixels under a scan square whose dark
+    ratio reaches the threshold (bool [B,H,W])."""
+    counts = block_counts(dark, scan_size, scan_step)
+    triggered = counts >= f32(scan_threshold * scan_size * scan_size, counts)
+    return coverage_from_blocks(triggered, dark.shape, scan_size,
+                                scan_step) & dark
+
+
 def blackfilter_wipe_dark(dark: torch.Tensor,
                           scan_size: int = C.BLACKFILTER_SCAN_SIZE,
                           scan_step: int = C.BLACKFILTER_SCAN_STEP,
@@ -22,12 +35,8 @@ def blackfilter_wipe_dark(dark: torch.Tensor,
                           intensity: int = C.BLACKFILTER_INTENSITY
                           ) -> torch.Tensor:
     """Decision core on a dark plane (bool [B,H,W])."""
-    counts = block_counts(dark, scan_size, scan_step)
-    triggered = counts >= f32(scan_threshold * scan_size * scan_size, counts)
-    seed_area = coverage_from_blocks(triggered, dark.shape, scan_size,
-                                     scan_step)
-    return flood_reach(seed_area & dark, dark, connectivity=8,
-                       leap=intensity)
+    seeds = blackfilter_seeds(dark, scan_size, scan_step, scan_threshold)
+    return flood_reach(seeds, dark, connectivity=8, leap=intensity)
 
 
 def blackfilter_wipe(gray: torch.Tensor,

@@ -36,15 +36,30 @@ def border_wipe_dark(dark: torch.Tensor,
                      scan_threshold: float = C.BORDER_SCAN_THRESHOLD
                      ) -> torch.Tensor:
     """Decision core on a dark plane (bool [B,H,W])."""
-    b, h, w = dark.shape
     rows, cols = line_counts(dark)
+    return border_wipe_profiles(rows, cols, scan_size, scan_step,
+                                scan_threshold)
+
+
+def border_wipe_profiles(rows: torch.Tensor, cols: torch.Tensor,
+                         scan_size: int = C.BORDER_SCAN_SIZE,
+                         scan_step: int = C.BORDER_SCAN_STEP,
+                         scan_threshold: float = C.BORDER_SCAN_THRESHOLD,
+                         row0: int = 0, n_rows: int | None = None
+                         ) -> torch.Tensor:
+    """The same decision from a page's dark counts (f32 row counts
+    [B,H], column counts [B,W]): the wipe of page rows [row0, row0 +
+    n_rows) (None: to the page's end), bool [B,n_rows,W]."""
+    h, w = rows.shape[1], cols.shape[1]
+    n_rows = h - row0 if n_rows is None else n_rows
     args = (scan_size, scan_step, scan_threshold)
     top = _border_extent(rows, h, *args, False)[:, None, None]
     bottom = _border_extent(rows, h, *args, True)[:, None, None]
     left = _border_extent(cols, w, *args, False)[:, None, None]
     right = _border_extent(cols, w, *args, True)[:, None, None]
-    ys = torch.arange(h, device=dark.device).view(1, h, 1)
-    xs = torch.arange(w, device=dark.device).view(1, 1, w)
+    ys = torch.arange(row0, row0 + n_rows, device=rows.device).view(
+        1, n_rows, 1)
+    xs = torch.arange(w, device=rows.device).view(1, 1, w)
     return ((ys < top) | (ys >= h - bottom)) | ((xs < left) | (xs >= w - right))
 
 

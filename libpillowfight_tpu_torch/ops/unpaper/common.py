@@ -112,11 +112,17 @@ def block_counts(x: torch.Tensor, size: int, step: int) -> torch.Tensor:
     """Window counts of a bool [B,H,W] plane: f32 [B,nby,nbx], cell (i,j)
     covering [i*step, i*step+size) x [j*step, j*step+size). The
     reference is exact for size <= 256 (<= 127 past 256 block rows)."""
-    nby = (x.shape[1] - size) // step + 1
+    check_counts_domain(x.shape[1], size, step)
+    return _block_sums(x, size, step)
+
+
+def check_counts_domain(h: int, size: int, step: int) -> None:
+    """Raise unless `block_counts` takes windows of `size` at `step` on a
+    plane of h rows."""
+    nby = (h - size) // step + 1
     if size > 256 or (nby > 256 and size > 127):
         raise ValueError(f"size={size} is outside block_counts' domain "
                          f"(<= 256, or <= 127 for more than 256 block rows)")
-    return _block_sums(x, size, step)
 
 
 def block_sums_u16(x: torch.Tensor, size: int, step: int) -> torch.Tensor:

@@ -46,12 +46,27 @@ def masks_wipe_dark(dark: torch.Tensor,
                     starts: tuple | None = None) -> torch.Tensor:
     """Decision core on a dark plane (bool [B,H,W]). starts: (y, x)
     start points; None is the single page-centre point."""
-    b, h, w = dark.shape
+    rows, cols = line_counts(dark)
+    return masks_wipe_profiles(rows, cols, scan_size, scan_step,
+                               scan_threshold, starts)
+
+
+def masks_wipe_profiles(rows: torch.Tensor, cols: torch.Tensor,
+                        scan_size: int = C.MASKS_SCAN_SIZE,
+                        scan_step: int = C.MASKS_SCAN_STEP,
+                        scan_threshold: float = C.MASKS_SCAN_THRESHOLD,
+                        starts: tuple | None = None, row0: int = 0,
+                        n_rows: int | None = None) -> torch.Tensor:
+    """The same decision from a page's dark counts (f32 row counts
+    [B,H], column counts [B,W]): the wipe of page rows [row0, row0 +
+    n_rows) (None: to the page's end), bool [B,n_rows,W]."""
+    h, w = rows.shape[1], cols.shape[1]
+    n_rows = h - row0 if n_rows is None else n_rows
     if starts is None:
         starts = ((h // 2, w // 2),)
-    rows, cols = line_counts(dark)
-    ys = torch.arange(h, device=dark.device).view(1, h, 1)
-    xs = torch.arange(w, device=dark.device).view(1, 1, w)
+    ys = torch.arange(row0, row0 + n_rows, device=rows.device).view(
+        1, n_rows, 1)
+    xs = torch.arange(w, device=rows.device).view(1, 1, w)
     args = (scan_size, scan_step, scan_threshold)
     keep = None
     for sy, sx in starts:

@@ -1,10 +1,15 @@
-"""Per-host heartbeats for the batch runner (port of `Heartbeat` in
+"""Multi-process execution: distributed init, the ("host", "chip")
+mesh, a gather over processes, and per-host heartbeats (port of
 `libpillowfight_tpu/parallel/multihost.py`).
 
-A lost host surfaces as a stale heartbeat file instead of a silent hang;
-`BatchRunner` then steals its unfinished chunks. The file format is the
-reference's (`<dir>/host<i>.hb` holding `{"seq", "t"}`), so heartbeats
-written by either package are read by the other.
+A host is one process, joined to the others through `torch.distributed`:
+NCCL where the process has a CUDA card, gloo otherwise. Pages are split
+over hosts and gathered with a collective; a page's rows stay on one
+host's devices, as the reference keeps "collectives inside a page on
+ICI". A lost host surfaces as a stale heartbeat file instead of a silent
+hang; `BatchRunner` then steals its unfinished chunks. The heartbeat
+file format is the reference's (`<dir>/host<i>.hb` holding `{"seq",
+"t"}`), so heartbeats written by either package are read by the other.
 """
 
 from __future__ import annotations
@@ -13,6 +18,67 @@ import json
 import os
 import threading
 import time
+
+import torch
+import torch.distributed as dist
+
+from .mesh import Mesh, _device_grid
+
+
+def initialize_distributed(coordinator: str | None = None,
+                           num_processes: int | None = None,
+                           process_id: int | None = None) -> None:
+    """`torch.distributed.init_process_group` over tcp://coordinator
+    ("host:port"), NCCL where this process has a CUDA card, gloo
+    otherwise. Each argument falls back on the environment that
+    `torchrun` sets: WORLD_SIZE, RANK, and MASTER_ADDR with MASTER_PORT.
+    Nothing is done for one process or where the group already exists
+    (re-initialisation); any other failure raises."""
+    n = int(os.environ.get("WORLD_SIZE", 1)) if num_processes is None \
+        else num_processes
+    if n == 1 or dist.is_initialized():
+        return
+    rank = int(os.environ["RANK"]) if process_id is None else process_id
+    if coordinator is None:
+        coordinator = (f"{os.environ['MASTER_ADDR']}:"
+                       f"{os.environ['MASTER_PORT']}")
+    dist.init_process_group(
+        "nccl" if torch.cuda.is_available() else "gloo",
+        init_method=f"tcp://{coordinator}", world_size=n, rank=rank)
+
+
+def make_host_mesh() -> Mesh:
+    """("host", "chip") mesh: one row a process (the rank), one column a
+    device of it (every CUDA card, else the CPU). Row h lists host h's
+    devices as its process names them, hosts being alike; a process
+    drives its own row only."""
+    n_hosts = dist.get_world_size() if dist.is_initialized() else 1
+    devs = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            or [torch.device("cpu")])
+    return Mesh(_device_grid(devs * n_hosts, (n_hosts, len(devs))),
+                ("host", "chip"))
+
+
+def process_allgather(x: torch.Tensor) -> torch.Tensor:
+    """Every process's x concatenated along dim 0 in rank order, on x's
+    device (the counterpart of jax's `multihost_utils.process_allgather(x,
+    tiled=True)`). The processes' x may differ in dim 0 only. x itself
+    where there is one process."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return x
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = x.to(dev).contiguous()
+    world = dist.get_world_size()
+    sizes = [torch.zeros(1, dtype=torch.int64, device=dev)
+             for _ in range(world)]
+    dist.all_gather(sizes, torch.tensor([t.shape[0]], device=dev))
+    sizes = [int(s) for s in sizes]
+    padded = t.new_zeros((max(sizes), *t.shape[1:]))
+    padded[:t.shape[0]] = t
+    parts = [torch.empty_like(padded) for _ in range(world)]
+    dist.all_gather(parts, padded)
+    return torch.cat([p[:n] for p, n in zip(parts, sizes)]).to(x.device)
 
 
 class Heartbeat:

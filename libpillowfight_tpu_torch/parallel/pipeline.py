@@ -30,6 +30,8 @@ from ..ops.unpaper.common import dark_mask, nonwhite_mask, wipe_white
 from ..ops.unpaper.grayfilter import grayfilter_wipe, grayfilter_wipe_planes_s3
 from ..ops.unpaper.masks import masks_wipe, masks_wipe_dark
 from ..ops.unpaper.noisefilter import noisefilter_wipe, noisefilter_wipe_nonwhite
+from .mesh import ShardedPages
+from .spatial import run_unpaper_group
 
 # filters that run on uint8 RGBA pages (swt also takes int32 words and
 # returns the form it was given)
@@ -132,12 +134,35 @@ def _default_black_threshold(group) -> bool:
                for name, kwargs in group if name == "unpaper_blackfilter")
 
 
-def run_pipeline(pages: torch.Tensor, spec: tuple) -> torch.Tensor:
+def _run_sharded(x: ShardedPages, spec: tuple) -> ShardedPages:
+    """The spec on a batch placed by `shard_pages`. With one row shard a
+    page, each shard runs the whole spec on its device; with more, a run
+    of unpaper filters is the only spec taken (`spatial.py`)."""
+    if x.shards.shape[1] == 1:
+        return x.map(lambda s: run_pipeline(s, spec))
+    other = sorted({name for name, _ in spec if name not in _WIPES})
+    if other:
+        raise NotImplementedError(
+            f"{other} on rows-sharded pages: ROADMAP.md queue 1, item 4 "
+            f"(EDGE_STACK, ace and swt over row shards)")
+    if not spec:
+        return x
+    if x.dtype == torch.int32:
+        return run_unpaper_group(x, spec)
+    if x.dtype != torch.uint8:
+        raise TypeError(f"pages must be uint8 RGBA or int32 words, got "
+                        f"{x.dtype}")
+    return run_unpaper_group(x.map(pages_to_words), spec).map(words_to_pages)
+
+
+def run_pipeline(pages, spec: tuple):
     """Apply a normalized spec. Takes uint8 RGBA [B,H,W,4] or int32 words
     [B,H,W] (or one page) and returns the same form, on the input's
     device. A run of unpaper filters works on words, swt on either form,
     any other filter on RGBA, converted to before it and back at the
-    end."""
+    end. A ShardedPages (`mesh.shard_pages`) gives a ShardedPages."""
+    if isinstance(pages, ShardedPages):
+        return _run_sharded(pages, spec)
     x, unb = ensure_batched(pages)
     in_words = x.dtype == torch.int32
     if not in_words and x.dtype != torch.uint8:

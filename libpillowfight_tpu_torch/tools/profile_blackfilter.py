@@ -31,10 +31,9 @@ from ..core.bitmap import rgba_to_gray
 from ..ops.cuda import flood_packed as fp
 from ..ops.cuda import flood_sweep as fs
 from ..ops.morph import flood_reach, packed_fits
-from ..ops.unpaper.blackfilter import blackfilter_wipe
+from ..ops.unpaper.blackfilter import blackfilter_seeds, blackfilter_wipe
 from ..ops.unpaper.common import dark_mask
 from . import timing
-from .profile_chain_parts import blackfilter_seeds
 from .profile_flood import packed_rounds, sweep_launches
 
 LEAP = C.BLACKFILTER_INTENSITY

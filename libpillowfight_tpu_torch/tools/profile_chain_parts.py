@@ -20,24 +20,14 @@ from ..core import constants as C
 from ..core.bitmap import (pages_to_words, rgba_to_gray, words_to_gray,
                            words_to_s3)
 from ..ops.morph import flood_reach, small_cluster_mask
+from ..ops.unpaper.blackfilter import blackfilter_seeds
 from ..ops.unpaper.blurfilter import blurfilter_wipe_nonwhite
-from ..ops.unpaper.common import (block_counts, coverage_from_blocks,
-                                  dark_mask, f32, nonwhite_mask)
+from ..ops.unpaper.common import block_counts, dark_mask, nonwhite_mask
 from ..ops.unpaper.grayfilter import grayfilter_wipe_planes_s3
 from . import timing
 
 BF = C.BLACKFILTER_SCAN_SIZE, C.BLACKFILTER_SCAN_STEP
 BLUR = C.BLURFILTER_SIZE, C.BLURFILTER_STEP
-
-
-def blackfilter_seeds(dark):
-    """The blackfilter's seeds, as `blackfilter_wipe_dark` makes them:
-    the dark pixels of the scan squares whose dark count reaches the
-    threshold."""
-    size, step = BF
-    counts = block_counts(dark, size, step)
-    trig = counts >= f32(C.BLACKFILTER_SCAN_THRESHOLD * size * size, counts)
-    return coverage_from_blocks(trig, dark.shape, size, step) & dark
 
 
 def dark_and_nonwhite(gray):

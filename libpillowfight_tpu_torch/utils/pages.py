@@ -10,8 +10,10 @@ letters on it: canny's thresholds are fractions of the page's strongest
 gradient, and on a page that is light up to its rim that is the rim
 itself (the blur and the gradient pad with zeros), twice as strong as
 any glyph's edge. `bar_pages` repeats the letters of the reference's
-SWT oracle test over a page. `flood_cases`, `label_cases`, `blur_cases`,
-`line_count_cases`, `pack_cases`, `unpack_cases` and `cert_cases` (also
+SWT oracle test over a page. `snake_pages` is a page whose
+blackfilter flood winds across every row shard boundary. `flood_cases`,
+`label_cases`, `blur_cases`, `line_count_cases`, `pack_cases`,
+`unpack_cases` and `cert_cases` (also
 the ball count's) are the planes on which the kernels are held to their
 plain versions on the card: the CPU tests hold the plain versions to the
 reference on the same planes.
@@ -85,6 +87,27 @@ def bar_pages(b: int, h: int, w: int) -> np.ndarray:
         g[y: y + 12, 8: 40] = 210
     page = np.stack([g, g, g, np.full_like(g, 255)], axis=-1)
     return np.broadcast_to(page, (b, h, w, 4)).copy()
+
+
+SNAKE_PITCH, SNAKE_DARK = 50, 15
+
+
+def snake_pages(b: int, h: int, w: int, arms: int = 6) -> np.ndarray:
+    """uint8 RGBA [b,h,w,4]: a 3-px dark snake on a light page, `arms`
+    vertical arms 50 px apart from row 6 to h - 6 joined at alternating
+    ends, and a solid 28-px square at its start that seeds the
+    blackfilter's flood. With the page's rows sharded, that flood crosses
+    every shard boundary once an arm (`parallel/spatial.py`)."""
+    pages = np.full((b, h, w, 4), 245, np.uint8)
+    pages[..., 3] = 255
+    xs = [30 + SNAKE_PITCH * i for i in range(arms)]
+    for i, x in enumerate(xs):
+        pages[:, 6:h - 6, x:x + 3, :3] = SNAKE_DARK
+        if i + 1 < arms:
+            y = h - 9 if i % 2 == 0 else 6
+            pages[:, y:y + 3, x:xs[i + 1] + 3, :3] = SNAKE_DARK
+    pages[:, 6:34, 20:48, :3] = SNAKE_DARK
+    return pages
 
 
 def _snake(h: int, w: int, x0: int, arms: int, vertical: bool):

@@ -21,18 +21,14 @@ from libpillowfight_tpu_torch.ops.unpaper import common as tcommon
 torch.set_num_threads(1)
 
 # Modules of the reference with no counterpart module (ROADMAP.md "Not to
-# be ported"): the row sharding and the mesh; the Pallas kernels, whose
-# counterparts are `ops/cuda/` and `csrc/`, held by the kernel tests.
-NO_COUNTERPART = ("libpillowfight_tpu.parallel.halo",
-                  "libpillowfight_tpu.parallel.mesh",
-                  "libpillowfight_tpu.ops.pallas")
+# be ported"): the Pallas kernels, whose counterparts are `ops/cuda/` and
+# `csrc/`, held by the kernel tests.
+NO_COUNTERPART = ("libpillowfight_tpu.ops.pallas",)
 # Names of the table's rows, wherever the reference exports them.
+# `pallas_backend_ok` asks whether Pallas kernels can run on JAX's backend;
+# the port's wrappers choose by each tensor's device and ask no backend.
 NOT_PORTED = {
-    "halo", "mesh", "pallas",
-    "exchange_halo_rows", "sharded_stencil",
-    "make_mesh", "shard_pages", "page_sharding", "replicated",
-    "PAGES_AXIS", "ROWS_AXIS",
-    "initialize_distributed", "make_host_mesh",
+    "pallas", "pallas_backend_ok",
     "put_row_major", "row_major_format",
 }
 
