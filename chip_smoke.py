@@ -158,6 +158,7 @@ import time
 
 import torch
 
+from libpillowfight_tpu_torch.parallel.pipeline import DOCUMENT_CLEANUP
 from libpillowfight_tpu_torch.tools.profile_swt import swt_stages
 from libpillowfight_tpu_torch.utils.metrics import (
     ACE_SLOTS_PER_PIXEL_SAMPLE, F32_OPS_PER_S, HBM_BYTES_PER_S, SFU_OPS_PER_S,
@@ -1840,10 +1841,206 @@ def check_rows_sharded(total: dict, dev, card: str) -> None:
         f"{ms:.2f} ms beside {plain_ms:.2f} ms unsharded, "
         f"{ms / plain_ms:.2f}x (a reading: one card does both shards' work, "
         f"the halos and the exchange rounds) on {card}")
+    check_sharded_filters(run, one_card, dev, card, n_cards)
     if n_cards == 1:
         log("one card: no cross-card copy was exercised (every shard on "
             "cuda:0)")
     log(f"phase 7b: {time.perf_counter() - t0:.1f} s")
+
+
+# the kernels each filter launches on every row shard (sobel and ace's
+# "rolled" and "per_pixel" modes run in plain torch, as in the reference)
+FLOOD_PACKED = ["pack_rows", "flood_round", "unpack_rows"]
+SHARDED_FILTERS = {
+    "gaussian": ([("gaussian", ())], ["gaussian_sep", "gaussian_sep[hw10]"]),
+    "sobel": ([("sobel", ())], []),
+    "EDGE_STACK": ([("canny", ())], ["gaussian_sep", *FLOOD_PACKED]),
+    "ace (shared, 100 samples)": ([("ace", {"seed": ACE_SEED})],
+                                  ["ace_spray"]),
+    **{f"swt (type {t})": ([("swt", {"output_type": t})],
+                           ["gaussian_sep", *FLOOD_PACKED, "label_links"])
+       for t in (0, 1, 2)},
+    "DOCUMENT_CLEANUP, then canny": ([*DOCUMENT_CLEANUP, ("canny", ())],
+                                     [*SHARDED_PACKED, "gaussian_sep"]),
+}
+
+
+def check_sharded_filters(run, one_card, dev, card: str,
+                          n_cards: int) -> None:
+    """Phase 7b, the filters on rows-sharded pages, each call counted and
+    held bit for bit (`torch.equal`) to the unsharded call on the card:
+    gaussian, sobel, EDGE_STACK, ace (shared), swt (types 0, 1, 2) and
+    the chain then canny at A4 x 2 on (1, 2) and (1, 4) shards of cuda:0
+    (and over every card where there are several); EDGE_STACK and swt at
+    A4 600 dpi x 1 on (1, 2), whose slabs take the sweep flood; ace
+    "rolled" and "per_pixel" at A4 x 1, 16 samples, on (1, 2); the lit
+    snake through swt and the faint one through EDGE_STACK on (1, 4);
+    then EDGE_STACK and ace at A4 x 16 and swt at A4 x 4 timed on (1, 2)
+    shards beside unsharded (readings, not gates)."""
+    import libpillowfight_tpu_torch as pt
+    from libpillowfight_tpu_torch.parallel import (shard_pages, spatial,
+                                                   spatial_swt)
+    from libpillowfight_tpu_torch.parallel.mesh import make_mesh
+    from libpillowfight_tpu_torch.utils.pages import (lit_snake_pages,
+                                                      text_pages)
+
+    launched = dict.fromkeys(KERNELS, 0)  # by this phase's held calls
+
+    def held(name, words, spec, mesh, expect, route=None):
+        spec = pt.normalize_spec(spec)
+        want = pt.run_pipeline(words, spec)
+        x = shard_pages(words, mesh)
+        grid = f"{tuple(mesh.devices.shape)} on " + ", ".join(
+            sorted({str(d) for d in mesh.devices.flat}))
+        log(f"sharded {name} {tuple(words.shape)} {grid}: expected kernels "
+            f"{expect or 'none (plain torch)'}")
+        got, counts = run(lambda: pt.run_pipeline(x, spec).gather(dev),
+                          f"sharded {name} {grid}", expect)
+        for k in launched:
+            launched[k] += counts[k]
+        if route is not None:
+            other = {"flood_sweep": "pack_rows",
+                     "pack_rows": "flood_sweep"}[route]
+            if counts[other]:
+                raise AssertionError(f"sharded {name} {grid}: {other} "
+                                     f"launched beside {route}")
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"sharded {name} {grid} differs from the unsharded call on "
+                f"the card on {int((got != want).sum())} values")
+        log(f"sharded {name} {grid}: bit-identical to the unsharded call "
+            f"on the card; flood exchange rounds {spatial.flood_rounds}"
+            + (f", merged labels {spatial_swt.merged_labels}"
+               if "swt" in name else ""))
+
+    a4 = words_on(text_pages(CHECK_BATCH, A4_H, A4_W), dev)
+    meshes = [one_card(1, 2), one_card(1, 4)]
+    if n_cards > 1:
+        meshes.append(make_mesh(n_cards, rows=n_cards))
+    for mesh in meshes:
+        for name, (spec, expect) in SHARDED_FILTERS.items():
+            held(name, a4, spec, mesh, expect)
+    del a4
+    a4_600 = words_on(text_pages(1, A4_600_H, A4_600_W), dev)
+    held("EDGE_STACK", a4_600, [("canny", {})], one_card(1, 2),
+         ["gaussian_sep", "flood_sweep"], "flood_sweep")
+    held("swt (type 0)", a4_600, [("swt", {})], one_card(1, 2),
+         ["gaussian_sep", "flood_sweep", "label_links"], "flood_sweep")
+    del a4_600
+    a4 = words_on(text_pages(1, A4_H, A4_W), dev)
+    for mode in ("rolled", "per_pixel"):
+        held(f"ace ({mode}, 16 samples)", a4,
+             [("ace", {"mode": mode, "nb_samples": 16, "seed": ACE_SEED})],
+             one_card(1, 2), [])
+    del a4
+    snake = words_on(lit_snake_pages(1, A4_H, A4_W), dev)
+    held("swt (type 0) on the lit snake", snake, [("swt", {})],
+         one_card(1, 4), ["gaussian_sep", *FLOOD_PACKED, "label_links"])
+    if not spatial_swt.merged_labels[0]:
+        raise AssertionError("the lit snake's component merged no label "
+                             "across the boundaries")
+    faint = words_on(lit_snake_pages(1, A4_H, A4_W, faint=100), dev)
+    held("EDGE_STACK on the faint snake", faint, [("canny", {})],
+         one_card(1, 4), ["gaussian_sep", *FLOOD_PACKED])
+    if spatial.flood_rounds[0] <= 4:
+        raise AssertionError(f"the faint snake's hysteresis took "
+                             f"{spatial.flood_rounds} exchange rounds, "
+                             f"expected more than the 4 row shards")
+    del snake, faint
+    log(f"the sharded filters' launches: {launched}")
+
+    mesh = one_card(1, 2)
+    for name, spec, b in (("EDGE_STACK", [("canny", {})], TIME_BATCH),
+                          ("ace (100 samples)", [("ace", {"seed": ACE_SEED})],
+                           TIME_BATCH),
+                          ("swt (mode 0)", [("swt", {})], 4)):
+        spec = pt.normalize_spec(spec)
+        batches = [words_on(text_pages(b, A4_H, A4_W, seed=s), dev)
+                   for s in (0, 1)]
+        plain_ms = time_path(lambda x: pt.run_pipeline(x, spec), batches,
+                             f"{name}, unsharded", card)
+        ms = time_path(lambda x: pt.run_pipeline(shard_pages(x, mesh),
+                                                 spec).gather(dev),
+                       batches, f"{name}, rows-sharded on (1, 2) shards of "
+                       f"cuda:0 (shard_pages and gather included)", card)
+        log(f"rows-sharded {name} A4 x {b} on (1, 2) shards of one card: "
+            f"{ms:.2f} ms beside {plain_ms:.2f} ms unsharded, "
+            f"{ms / plain_ms:.2f}x on {card}")
+        del batches
+
+
+def check_device_guard(n_cards: int) -> None:
+    """Each of the ten kernels on tensors of cuda:1 while cuda:0 is the
+    current device, held to its plain version: every C entry is called
+    through `_build.launch`, which makes the tensor's device current."""
+    if n_cards < 2:
+        log("device guard: one card, so no kernel was launched on cuda:1 "
+            "while cuda:0 was current: the cross-device check was not "
+            "exercised")
+        return
+    spray, fp, gs, lc, noise, lb, fs = _counters()
+    tace = importlib.import_module("libpillowfight_tpu_torch.ops.ace")
+    one = torch.device("cuda", 1)
+    g = torch.Generator().manual_seed(11)
+    plane = (torch.rand((2, 300, 260), generator=g) < 0.45).to(one)
+    seeds = (torch.rand((2, 300, 260), generator=g) < 0.01).to(one) & plane
+    pages = torch.randint(0, 256, (2, 300, 260, 4), generator=g,
+                          dtype=torch.uint8).to(one)
+    sy, sx = (t.to(one) for t in tace.sample_coords(ACE_SEED, 2, 100, 300,
+                                                    260))
+    planar, sval = tace.spray_inputs(pages, sy, sx)
+    taps = (0.25, 0.5, 0.25)
+    words = fp.pack_rows_plain(plane)
+    seeds_w = fp.pack_rows_plain(seeds)
+    cases = {
+        "line_counts": (lambda: lc.line_counts_cuda(plane),
+                        lambda: lc.line_counts_plain(plane)),
+        "pack_rows": (lambda: fp.pack_rows_cuda(plane),
+                      lambda: fp.pack_rows_plain(plane)),
+        "unpack_rows": (lambda: fp.unpack_rows_cuda(words, 300),
+                        lambda: fp.unpack_rows_plain(words, 300)),
+        "flood_round": (lambda: fp.flood_packed_cuda(seeds_w, words, 300, 260),
+                        lambda: fp.flood_packed_plain(seeds_w, words, 300,
+                                                      260)),
+        "noise_cert": (lambda: noise.noise_cert_cuda(plane, 2, 5),
+                       lambda: noise.noise_cert_plain(plane, 2, 5)),
+        "noise_ball": (lambda: noise.noise_ball_cuda(plane, 1),
+                       lambda: noise.noise_ball_plain(plane, 1)),
+        "flood_sweep": (lambda: fs.flood_sweep_cuda(seeds, plane),
+                        lambda: fs.flood_sweep_plain(seeds, plane)),
+        "label_links": (lambda: lb.label_links_cuda(plane, None),
+                        lambda: lb.label_links_plain(plane, None)),
+        "gaussian_sep": (lambda: gs.gaussian_sep_cuda(planar[:, 0]
+                                                      .contiguous(), taps),
+                         lambda: gs.gaussian_sep_plain(planar[:, 0], taps)),
+        "ace_spray": (lambda: spray.ace_spray_cuda(planar, sy, sx, sval,
+                                                   10.0, 1000.0),
+                      lambda: spray.ace_spray_plain(planar, sy, sx, sval,
+                                                    10.0, 1000.0)),
+    }
+    with torch.cuda.device(0):
+        for name, (kernel, plain) in cases.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize(one)
+            if torch.cuda.current_device() != 0:
+                raise AssertionError(f"{name} left cuda:"
+                                     f"{torch.cuda.current_device()} current")
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            if any(a.device != one for a in got):
+                raise AssertionError(f"{name}: output off cuda:1")
+            if name == "ace_spray":
+                err_n, err_i, top = spray_errors(got, want)
+                ok = max(err_n / (1000.0 * top),
+                         err_i / top) <= spray.ACE_SPRAY_RTOL
+            else:
+                ok = all(torch.equal(a, b) for a, b in zip(got, want))
+            if not ok:
+                raise AssertionError(f"{name} on cuda:1 with cuda:0 current "
+                                     f"differs from its plain version")
+    log("device guard: each of the ten kernels launched on cuda:1 tensors "
+        "while cuda:0 was current, each held to its plain version "
+        "(bit-identical; the ACE spray within ACE_SPRAY_RTOL)")
 
 
 def check_tools(total: dict, plain_page: torch.Tensor) -> None:
@@ -2431,6 +2628,7 @@ def main() -> int:
     finally:
         shutil.rmtree(corpus_dir(), ignore_errors=True)
     # 7b. the distribution layer, each call counted
+    check_device_guard(torch.cuda.device_count())
     check_rows_sharded(total, dev, card)
     # 8. the headline measurement and the profile tools, each counted
     check_tools(total, plain2[:1])

@@ -10,6 +10,10 @@ and read with `resource_usage`.
 
 Every C entry takes its pointers and the stream as `void*` and returns
 `cudaGetLastError()` after its launches; `check` raises if that is not 0.
+The wrappers of `ops/cuda` reach the entries through `launch` (the
+kernels) and `host_size` (the two entries that size a buffer on the
+host) only: `launch` makes the tensor's device the current CUDA device
+around the call.
 """
 
 from __future__ import annotations
@@ -168,3 +172,22 @@ def check(err: int, what: str) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """The raw handle of the current CUDA stream of t's device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(entry: str, t: torch.Tensor, *args) -> None:
+    """Call the C entry `entry` with `args` and the current stream of t's
+    device, t's device made the current CUDA device around the call, and
+    raise on a CUDA error. An entry launches on, and reads the attributes
+    of, the current device, and CUDA refuses a launch into the stream of
+    another device: without the guard a call on a tensor of `cuda:1`
+    while `cuda:0` is current would fail."""
+    fn = getattr(load(), entry)
+    with torch.cuda.device(t.device):
+        err = fn(*args, stream_of(t))
+    check(err, entry)
+
+
+def host_size(entry: str, *args) -> int:
+    """The bytes an entry that sizes a buffer on the host returns
+    (`pft_flood_packed_smem`, `pft_label_scratch_bytes`): no launch."""
+    return getattr(load(), entry)(*args)

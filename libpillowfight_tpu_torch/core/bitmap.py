@@ -95,13 +95,17 @@ def to_uint8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
 
 
-def normalize(matrix: torch.Tensor) -> torch.Tensor:
+def normalize(matrix: torch.Tensor, lo: torch.Tensor | None = None,
+              hi: torch.Tensor | None = None) -> torch.Tensor:
     """Per-page min-max rescale of f32 [B,H,W] to [0,255]; flat pages
     map to 0. `255 / span` is a true division: torch computes
     `scalar / tensor` as a reciprocal times the scalar, which rounds
-    differently."""
-    lo = torch.amin(matrix, dim=(-2, -1), keepdim=True)
-    hi = torch.amax(matrix, dim=(-2, -1), keepdim=True)
+    differently. lo and hi ([B,1,1]) are the page's extrema, taken from
+    `matrix` when not given: a row shard passes its page's."""
+    if lo is None:
+        lo = torch.amin(matrix, dim=(-2, -1), keepdim=True)
+    if hi is None:
+        hi = torch.amax(matrix, dim=(-2, -1), keepdim=True)
     span = torch.clamp(hi - lo, min=1e-12)
     return (matrix - lo) * (torch.full_like(span, 255.0) / span)
 

@@ -37,10 +37,17 @@ def _rdiv(c: float, t: torch.Tensor) -> torch.Tensor:
     return torch.full_like(t, c) / t
 
 
-def _rescale(n: torch.Tensor) -> torch.Tensor:
-    """Per-page per-channel min-max stretch of n f32 [B,H,W,3] to uint8."""
-    lo = torch.amin(n, dim=(1, 2), keepdim=True)
-    hi = torch.amax(n, dim=(1, 2), keepdim=True)
+def channel_extrema(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lo, hi) of n f32 [B,H,W,3] per page and channel, [B,1,1,3] each."""
+    return (torch.amin(n, dim=(1, 2), keepdim=True),
+            torch.amax(n, dim=(1, 2), keepdim=True))
+
+
+def _rescale(n: torch.Tensor, extrema=None) -> torch.Tensor:
+    """Per-page per-channel min-max stretch of n f32 [B,H,W,3] to uint8,
+    by the page's (lo, hi) (`channel_extrema` of n when not given: a row
+    shard passes its page's)."""
+    lo, hi = channel_extrema(n) if extrema is None else extrema
     span = hi - lo
     stretched = torch.where(span > 1e-9,
                             255.0 * (n - lo) / torch.clamp(span, min=1e-9),
@@ -48,8 +55,10 @@ def _rescale(n: torch.Tensor) -> torch.Tensor:
     return to_uint8(stretched)
 
 
-def _with_alpha(n: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
-    return torch.cat([_rescale(n), pages[..., 3:]], dim=-1)
+def with_alpha(n: torch.Tensor, pages: torch.Tensor,
+               extrema=None) -> torch.Tensor:
+    """The stretched n with the pages' alpha: the uint8 RGBA result."""
+    return torch.cat([_rescale(n, extrema), pages[..., 3:]], dim=-1)
 
 
 def spray_inputs(pages: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor
@@ -57,20 +66,29 @@ def spray_inputs(pages: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor
     """(planar f32 [B,3,H,W], sample values f32 [B,3,S]) of uint8 RGBA
     pages [B,H,W,4] and sample coordinates int32 [B,S]."""
     b, h, w, _ = pages.shape
-    rgb = pages[..., :3].to(torch.float32)
-    planar = rgb.permute(0, 3, 1, 2).contiguous()
+    planar = to_planar(pages)
     flat = (sy.to(torch.int64) * w + sx.to(torch.int64))  # [B,S]
     sval = torch.gather(planar.reshape(b, 3, h * w), 2,
                         flat[:, None, :].expand(b, 3, flat.shape[1]))
     return planar, sval.contiguous()
 
 
+def to_planar(pages: torch.Tensor) -> torch.Tensor:
+    """The RGB planes of uint8 RGBA pages, f32 [B,3,H,W]."""
+    return pages[..., :3].to(torch.float32).permute(0, 3, 1, 2).contiguous()
+
+
+def spray_ratio(num: torch.Tensor, invd: torch.Tensor,
+                limit: float) -> torch.Tensor:
+    """n = num / (limit * invd), f32 [B,H,W,3], of the spray sums."""
+    return num.permute(0, 2, 3, 1) / (limit * invd)[..., None]
+
+
 def from_spray(pages: torch.Tensor, num: torch.Tensor, invd: torch.Tensor,
                limit: float) -> torch.Tensor:
     """The uint8 RGBA result of the spray sums: n = num / (limit * invd),
     stretched per channel, alpha passed through."""
-    n = num.permute(0, 2, 3, 1) / (limit * invd)[..., None]
-    return _with_alpha(n, pages)
+    return with_alpha(spray_ratio(num, invd, limit), pages)
 
 
 def ace_with_samples(pages: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
@@ -85,21 +103,23 @@ def ace_with_samples(pages: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
 
 
 def _pixel_sample_accum(rgb: torch.Tensor, idx: torch.Tensor, slope: float,
-                        limit: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """(num [B,H,W,3], den [B,H,W,1]) of per-pixel flat sample indices
-    idx int [B,H,W,S] against rgb f32 [B,H,W,3]."""
-    b, h, w, _ = rgb.shape
-    s = idx.shape[-1]
+                        limit: float, row0: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(num [B,h,W,3], den [B,h,W,1]) of the page rows [row0, row0 + h)
+    against their per-pixel flat sample indices idx int [B,h,W,S] into
+    the page rgb f32 [B,H,W,3]."""
+    b, _, w, _ = rgb.shape
+    h, s = idx.shape[1], idx.shape[-1]
     idx = idx.to(torch.int64)
-    flat = rgb.reshape(b, h * w, 3)
+    flat = rgb.reshape(b, -1, 3)
     svals = torch.gather(flat, 1, idx.reshape(b, -1, 1).expand(-1, -1, 3))
     svals = svals.reshape(b, h, w, s, 3)
-    py = torch.arange(h, device=rgb.device)[None, :, None, None]
+    py = torch.arange(row0, row0 + h, device=rgb.device)[None, :, None, None]
     px = torch.arange(w, device=rgb.device)[None, None, :, None]
     dy = (idx // w - py).to(torch.float32)
     dx = (idx % w - px).to(torch.float32)
     d = torch.clamp(torch.sqrt(dy * dy + dx * dx), min=1.0)[..., None]
-    delta = rgb[:, :, :, None, :] - svals
+    delta = rgb[:, row0:row0 + h, :, None, :] - svals
     num = torch.sum(torch.clamp(slope * delta, -limit, limit) / d, dim=3)
     den = torch.sum(_rdiv(limit, d), dim=3)
     return num, den
@@ -122,35 +142,45 @@ def ace_per_pixel(pages: torch.Tensor, idx_chunks, slope: float,
         dn, dd = _pixel_sample_accum(rgb, idx, slope, limit)
         num = dn if num is None else num + dn
         den = dd if den is None else den + dd
-    return _with_alpha(num / den, pages)
+    return with_alpha(num / den, pages)
 
 
-def ace_rolled(pages: torch.Tensor, dys: torch.Tensor, dxs: torch.Tensor,
-               slope: float, limit: float) -> torch.Tensor:
-    """`rolled` ACE with explicit offsets dys, dxs int [S,B]: sample s of
+def rolled_ratio(rgb: torch.Tensor, dys: torch.Tensor, dxs: torch.Tensor,
+                 slope: float, limit: float, row0: int = 0,
+                 n_rows: int | None = None) -> torch.Tensor:
+    """n = num / den of `rolled` ACE for the page rows [row0, row0 +
+    n_rows) (default: all), rgb f32 [B,H,W,3] the whole page: sample s of
     pixel p is (p + (dys[s], dxs[s])) mod (H, W), at the signed distance
     of the wrapped position."""
-    b, h, w, _ = pages.shape
-    rgb = pages[..., :3].to(torch.float32)
-    dev = pages.device
+    b, h, w, _ = rgb.shape
+    n_rows = h - row0 if n_rows is None else n_rows
+    dev = rgb.device
     dys = dys.to(device=dev, dtype=torch.int64)
     dxs = dxs.to(device=dev, dtype=torch.int64)
-    py = torch.arange(h, device=dev)
+    py = torch.arange(row0, row0 + n_rows, device=dev)
     px = torch.arange(w, device=dev)
+    own = rgb[:, row0:row0 + n_rows]
     pages_idx = torch.arange(b, device=dev)[:, None, None]
-    num = torch.zeros((b, h, w, 3), dtype=torch.float32, device=dev)
-    den = torch.zeros((b, h, w, 1), dtype=torch.float32, device=dev)
+    num = torch.zeros((b, n_rows, w, 3), dtype=torch.float32, device=dev)
+    den = torch.zeros((b, n_rows, w, 1), dtype=torch.float32, device=dev)
     for dy, dx in zip(dys, dxs):  # [B] each
-        ys = py[None] + dy[:, None]   # [B,H]
+        ys = py[None] + dy[:, None]   # [B,n_rows]
         xs = px[None] + dx[:, None]   # [B,W]
         rolled = rgb[pages_idx, (ys % h)[:, :, None], (xs % w)[:, None, :]]
         ey = torch.where(ys >= h, dy[:, None] - h, dy[:, None])
         ex = torch.where(xs >= w, dx[:, None] - w, dx[:, None])
         d2 = (ey * ey)[:, :, None] + (ex * ex)[:, None, :]
         d = torch.clamp(torch.sqrt(d2.to(torch.float32)), min=1.0)[..., None]
-        num = num + torch.clamp(slope * (rgb - rolled), -limit, limit) / d
+        num = num + torch.clamp(slope * (own - rolled), -limit, limit) / d
         den = den + _rdiv(limit, d)
-    return _with_alpha(num / den, pages)
+    return num / den
+
+
+def ace_rolled(pages: torch.Tensor, dys: torch.Tensor, dxs: torch.Tensor,
+               slope: float, limit: float) -> torch.Tensor:
+    """`rolled` ACE with explicit offsets dys, dxs int [S,B]."""
+    rgb = pages[..., :3].to(torch.float32)
+    return with_alpha(rolled_ratio(rgb, dys, dxs, slope, limit), pages)
 
 
 def sample_coords(seed: int, b: int, s: int, h: int, w: int
@@ -161,6 +191,27 @@ def sample_coords(seed: int, b: int, s: int, h: int, w: int
     sy = torch.randint(0, h, (b, s), generator=g, dtype=torch.int32)
     sx = torch.randint(0, w, (b, s), generator=g, dtype=torch.int32)
     return sy, sx
+
+
+def rolled_offsets(seed: int, b: int, s: int, h: int, w: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The offsets `ace(mode="rolled")` draws: (dys, dxs) int64 [S,B],
+    from a CPU generator."""
+    g = torch.Generator().manual_seed(int(seed))
+    dys = torch.randint(0, h, (s, b), generator=g)
+    dxs = torch.randint(0, w, (s, b), generator=g)
+    return dys, dxs
+
+
+def pixel_index_chunks(seed: int, b: int, s: int, h: int, w: int,
+                       device: torch.device):
+    """The index chunks `ace(mode="per_pixel")` draws, one at a time:
+    int64 [B,H,W,8] each, ceil(S / 8) of them, from a generator on
+    `device` (so a seed draws alike only on one kind of device)."""
+    g = torch.Generator(device=device).manual_seed(int(seed))
+    for _ in range(-(-s // _PER_PIXEL_CHUNK)):
+        yield torch.randint(0, h * w, (b, h, w, _PER_PIXEL_CHUNK),
+                            generator=g, device=device)
 
 
 def ace(pages: torch.Tensor, nb_samples: int = C.ACE_DEFAULT_NB_SAMPLES,
@@ -182,18 +233,11 @@ def ace(pages: torch.Tensor, nb_samples: int = C.ACE_DEFAULT_NB_SAMPLES,
         out = ace_with_samples(pages, sy.to(pages.device),
                                sx.to(pages.device), slope, limit)
     elif mode == "rolled":
-        g = torch.Generator().manual_seed(int(seed))
-        dys = torch.randint(0, h, (nb_samples, b), generator=g)
-        dxs = torch.randint(0, w, (nb_samples, b), generator=g)
-        out = ace_rolled(pages, dys, dxs, slope, limit)
+        out = ace_rolled(pages, *rolled_offsets(seed, b, nb_samples, h, w),
+                         slope, limit)
     elif mode == "per_pixel":
-        g = torch.Generator(device=pages.device).manual_seed(int(seed))
-        n_chunks = -(-nb_samples // _PER_PIXEL_CHUNK)
-        chunks = (torch.randint(0, h * w, (b, h, w, _PER_PIXEL_CHUNK),
-                                generator=g,
-                                device=pages.device)
-                  for _ in range(n_chunks))
-        out = ace_per_pixel(pages, chunks, slope, limit)
+        out = ace_per_pixel(pages, pixel_index_chunks(
+            seed, b, nb_samples, h, w, pages.device), slope, limit)
     else:
         raise ValueError(f"unknown ace mode {mode!r}")
     return maybe_unbatch(out, unb)

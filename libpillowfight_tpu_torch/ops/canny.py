@@ -57,20 +57,34 @@ def canny_gradients(gray: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return sobel_gradients(smoothed)
 
 
-def canny_strong_weak(gx: torch.Tensor, gy: torch.Tensor
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The (strong, weak) bool planes of the double threshold, from
-    smoothed gradients. NMS and the thresholds compare the intensity
-    normalized to [0,255] and rounded to the integer grid, so ridge ties
-    break as in the reference; the strict `nms > 0` guard leaves a flat
-    page (peak 0) without edges."""
-    inten_q = torch.round(normalize(hypot(gx, gy)))
-    nms = _nms(inten_q, gx, gy)
-    peak = torch.amax(nms, dim=(-2, -1), keepdim=True)
+def canny_intensity(inten: torch.Tensor, lo: torch.Tensor | None = None,
+                    hi: torch.Tensor | None = None) -> torch.Tensor:
+    """The gradient intensity `hypot(gx, gy)` normalized to [0,255] by
+    the page's extrema (`normalize`'s lo, hi) and rounded to the integer
+    grid, so that ridge ties break in NMS as in the reference."""
+    return torch.round(normalize(inten, lo, hi))
+
+
+def canny_threshold(nms: torch.Tensor, peak: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(strong, weak) of the double threshold of the suppressed
+    intensity, at fractions of the page's peak ([B,1,1]; taken from `nms`
+    when not given). The strict `nms > 0` guard leaves a flat page (peak
+    0) without edges."""
+    if peak is None:
+        peak = torch.amax(nms, dim=(-2, -1), keepdim=True)
     live = nms > 0.0
     strong = (nms >= peak * C.CANNY_HIGH_THRESHOLD_FRACTION) & live
     weak = (nms >= peak * C.CANNY_LOW_THRESHOLD_FRACTION) & live
     return strong, weak
+
+
+def canny_strong_weak(gx: torch.Tensor, gy: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (strong, weak) bool planes of the double threshold, from the
+    smoothed gradients of whole pages. A row shard takes the steps one by
+    one with its page's extrema and peak (`parallel/spatial_edges.py`)."""
+    return canny_threshold(_nms(canny_intensity(hypot(gx, gy)), gx, gy))
 
 
 def canny_edge_mask_from_gradients(gx: torch.Tensor,

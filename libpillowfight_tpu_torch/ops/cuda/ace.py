@@ -109,11 +109,10 @@ def ace_spray_cuda(planar: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
         prescaled = abs(slope) / (2.0 * limit) * 255.0 <= PRESCALED_MAX_KI
     num = torch.empty_like(planar)
     invd = torch.empty((b, h, w), dtype=torch.float32, device=planar.device)
-    _build.check(_build.load().pft_ace_spray(
-        planar.data_ptr(), sy.data_ptr(), sx.data_ptr(), sval.data_ptr(),
-        num.data_ptr(), invd.data_ptr(), b, h, w, s, float(slope),
-        float(limit), int(prescaled), _build.stream_of(planar)),
-        "pft_ace_spray")
+    _build.launch("pft_ace_spray", planar, planar.data_ptr(), sy.data_ptr(),
+                  sx.data_ptr(), sval.data_ptr(), num.data_ptr(),
+                  invd.data_ptr(), b, h, w, s, float(slope), float(limit),
+                  int(prescaled))
     global launches
     launches += 1
     return num, invd

@@ -61,9 +61,8 @@ def pack_rows_cuda(plane: torch.Tensor) -> torch.Tensor:
     b, h, w = plane.shape
     out = torch.empty((b, (h + 31) // 32, w), dtype=torch.int32,
                       device=plane.device)
-    _build.check(_build.load().pft_pack_rows(
-        plane.data_ptr(), out.data_ptr(), b, h, w, _build.stream_of(plane)),
-        "pft_pack_rows")
+    _build.launch("pft_pack_rows", plane, plane.data_ptr(), out.data_ptr(),
+                  b, h, w)
     launches["pack_rows"] += 1
     return out
 
@@ -75,9 +74,8 @@ def unpack_rows_cuda(words: torch.Tensor, h: int) -> torch.Tensor:
         raise ValueError(f"words have {hq} word rows; h={h} needs "
                          f"{(h + 31) // 32}")
     out = torch.empty((b, h, w), dtype=torch.bool, device=words.device)
-    _build.check(_build.load().pft_unpack_rows(
-        words.data_ptr(), out.data_ptr(), b, h, w, _build.stream_of(words)),
-        "pft_unpack_rows")
+    _build.launch("pft_unpack_rows", words, words.data_ptr(), out.data_ptr(),
+                  b, h, w)
     launches["unpack_rows"] += 1
     return out
 
@@ -208,8 +206,7 @@ def flood_packed_cuda(seeds_w: torch.Tensor, mask_w: torch.Tensor, h: int,
     expect(seeds_w, "seeds", (torch.int32,), 3)
     max_iters = _flood_args(seeds_w, mask_w, h, w, leap, max_iters)
     b, hq, wq = mask_w.shape
-    lib = _build.load()
-    if lib.pft_flood_packed_smem(hq, wq) > MAX_SHARED_BYTES:
+    if _build.host_size("pft_flood_packed_smem", hq, wq) > MAX_SHARED_BYTES:
         raise ValueError(
             f"h={h}, w={w}: the packed flood stages a packed row (w <= "
             f"{MAX_SHARED_BYTES // 12}) and a 32-column strip (h <= "
@@ -218,10 +215,9 @@ def flood_packed_cuda(seeds_w: torch.Tensor, mask_w: torch.Tensor, h: int,
     t, v = torch.empty_like(r), torch.empty_like(r)
     info = torch.zeros(4, dtype=torch.int32, device=r.device)
     # a leap past the page reaches nothing more; the cap keeps C ints
-    _build.check(lib.pft_flood_packed(
-        mask_w.data_ptr(), r.data_ptr(), t.data_ptr(), v.data_ptr(),
-        info.data_ptr(), b, hq, wq, min(leap, max(h, wq)),
-        min(max_iters, 2**31 - 1), _build.stream_of(r)), "pft_flood_packed")
+    _build.launch("pft_flood_packed", r, mask_w.data_ptr(), r.data_ptr(),
+                  t.data_ptr(), v.data_ptr(), info.data_ptr(), b, hq, wq,
+                  min(leap, max(h, wq)), min(max_iters, 2**31 - 1))
     launches["flood_round"] += 1
     global last_info
     last_info = info

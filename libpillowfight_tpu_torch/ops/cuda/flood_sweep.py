@@ -111,9 +111,8 @@ def sweep_cuda(mask: torch.Tensor, reach: torch.Tensor,
     b, h, w = mask.shape
     if b > 65535:
         raise ValueError(f"batch {b}: at most 65535 pages")
-    _build.check(_build.load().pft_flood_sweep(
-        mask.data_ptr(), reach.data_ptr(), changed.data_ptr(), b, h, w,
-        leap, _threads(leap), _build.stream_of(mask)), "pft_flood_sweep")
+    _build.launch("pft_flood_sweep", mask, mask.data_ptr(), reach.data_ptr(),
+                  changed.data_ptr(), b, h, w, leap, _threads(leap))
     global launches
     launches += 1
 

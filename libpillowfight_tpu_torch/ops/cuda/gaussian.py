@@ -54,10 +54,9 @@ def gaussian_sep_cuda(planes: torch.Tensor, taps) -> torch.Tensor:
     n, h, w = planes.shape
     out = torch.empty_like(planes)
     instance = ctypes.c_int()
-    _build.check(_build.load().pft_gaussian_sep(
-        planes.data_ptr(), out.data_ptr(), (ctypes.c_float * n_taps)(*taps),
-        n_taps, n, h, w, ctypes.byref(instance), _build.stream_of(planes)),
-        "pft_gaussian_sep")
+    _build.launch("pft_gaussian_sep", planes, planes.data_ptr(),
+                  out.data_ptr(), (ctypes.c_float * n_taps)(*taps), n_taps,
+                  n, h, w, ctypes.byref(instance))
     launches += 1
     instance_launches["hw10" if instance.value else "generic"] += 1
     return out

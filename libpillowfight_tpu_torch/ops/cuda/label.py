@@ -128,15 +128,13 @@ def label_links_cuda(valid: torch.Tensor, links: dict | None
         planes = [p.contiguous() for p in _link_planes(valid, links)]
         for d, p in zip(OFFSETS, planes):
             expect(p, f"links[{d}]", (torch.bool,), 3)
-    lib = _build.load()
     labels = torch.empty((b, h, w), dtype=torch.int32, device=valid.device)
-    scratch = torch.empty(max(b * lib.pft_label_scratch_bytes(h, w), 1),
-                          dtype=torch.uint8, device=valid.device)
-    _build.check(lib.pft_label_links(
-        valid.data_ptr(), *(None if p is None else p.data_ptr()
-                            for p in planes),
-        labels.data_ptr(), scratch.data_ptr(), b, h, w,
-        _build.stream_of(valid)), "pft_label_links")
+    scratch = torch.empty(
+        max(b * _build.host_size("pft_label_scratch_bytes", h, w), 1),
+        dtype=torch.uint8, device=valid.device)
+    _build.launch("pft_label_links", valid, valid.data_ptr(),
+                  *(None if p is None else p.data_ptr() for p in planes),
+                  labels.data_ptr(), scratch.data_ptr(), b, h, w)
     global launches
     launches += 1
     return labels

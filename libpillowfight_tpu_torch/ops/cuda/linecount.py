@@ -39,9 +39,8 @@ def line_counts_cuda(plane: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
                          f"B <= {GRID_LIMIT}, H <= {GRID_LIMIT * BAND_ROWS}"
                          f" and W < {MAX_SIDE}")
     out = torch.empty(b * h + b * w, dtype=torch.float32, device=plane.device)
-    _build.check(_build.load().pft_line_counts(
-        plane.data_ptr(), out.data_ptr(), b, h, w, _build.stream_of(plane)),
-        "pft_line_counts")
+    _build.launch("pft_line_counts", plane, plane.data_ptr(), out.data_ptr(),
+                  b, h, w)
     launches += 1
     return out[:b * h].view(b, h), out[b * h:].view(b, w)
 

@@ -130,9 +130,8 @@ def noise_cert_cuda(plane: torch.Tensor, j: int, thresh: int
     shape = (b, (h + 31) // 32, w)
     cert = torch.empty(shape, dtype=torch.int32, device=plane.device)
     maskw = torch.empty(shape, dtype=torch.int32, device=plane.device)
-    _build.check(_build.load().pft_noise_cert(
-        plane.data_ptr(), cert.data_ptr(), maskw.data_ptr(), b, h, w, j,
-        thresh, _build.stream_of(plane)), "pft_noise_cert")
+    _build.launch("pft_noise_cert", plane, plane.data_ptr(), cert.data_ptr(),
+                  maskw.data_ptr(), b, h, w, j, thresh)
     launches["noise_cert"] += 1
     return cert, maskw
 
@@ -157,9 +156,8 @@ def noise_ball_cuda(plane: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"ball radius k={k} outside 1..{MAX_K}")
     b, h, w = plane.shape
     small = torch.empty((b, h, w), dtype=torch.bool, device=plane.device)
-    _build.check(_build.load().pft_noise_ball(
-        plane.data_ptr(), small.data_ptr(), b, h, w, k,
-        _build.stream_of(plane)), "pft_noise_ball")
+    _build.launch("pft_noise_ball", plane, plane.data_ptr(), small.data_ptr(),
+                  b, h, w, k)
     launches["noise_ball"] += 1
     return small
 

@@ -333,7 +333,8 @@ def _edge_classes(edges, gx, gy) -> torch.Tensor:
 
 def _swt_maps_one(gray, edges, gx, gy, max_len):
     """Both polarities' stroke-width maps, for one page [H,W] or a batch
-    [B,H,W]. gx/gy are the smoothed gradients shared with canny.
+    [B,H,W]. gx/gy are the smoothed gradients shared with canny; gray is
+    not read (the reference's signature).
 
     Returns (swt_minus, swt_plus, n_anchors): f32 maps (_INF = no
     stroke), sign -1 marching against the gradient (dark strokes on a
@@ -351,17 +352,22 @@ def _swt_maps_one(gray, edges, gx, gy, max_len):
 # letter components
 # --------------------------------------------------------------------------
 
-def _median_gray(gray: torch.Tensor) -> torch.Tensor:
-    """Exact median of each gray plane [B,H,W] whose values are k/3 for
-    k in 0..765, from a histogram of k. [B] f32; an even count takes the
-    mean of the two middle values."""
-    b, h, w = gray.shape
+def _gray_hist(gray: torch.Tensor) -> torch.Tensor:
+    """Histogram of 3 * gray (values k/3, k in 0..765) of each plane
+    [B,H,W] (or row block of a page): int64 [B,766]."""
+    b = gray.shape[0]
     s3 = torch.round(gray * 3.0).to(torch.int64)
     page = torch.arange(b, device=gray.device).view(b, 1, 1)
-    hist = torch.bincount((s3 + 766 * page).flatten(),
+    return torch.bincount((s3 + 766 * page).flatten(),
                           minlength=766 * b).view(b, 766)
+
+
+def _median_from_hist(hist: torch.Tensor, ntot: int) -> torch.Tensor:
+    """Exact median of each page from its `_gray_hist` (summed over its
+    row blocks) and its pixel count: [B] f32; an even count takes the
+    mean of the two middle values."""
+    b = hist.shape[0]
     cum = hist.cumsum(1)
-    ntot = h * w
 
     def kth(k):  # smallest value whose cumulative count reaches rank k
         rank = torch.full((b, 1), k, dtype=cum.dtype, device=cum.device)
@@ -370,6 +376,21 @@ def _median_gray(gray: torch.Tensor) -> torch.Tensor:
     if ntot % 2:
         return kth((ntot + 1) // 2)
     return (kth(ntot // 2) + kth(ntot // 2 + 1)) / 2.0
+
+
+def _median_gray(gray: torch.Tensor) -> torch.Tensor:
+    """Exact median of each gray plane [B,H,W]: [B] f32."""
+    return _median_from_hist(_gray_hist(gray), gray.shape[-2] * gray.shape[-1])
+
+
+def _letter_select(gray, swt_minus, swt_plus, med):
+    """(swt, valid, neg) of a page's pixels: the dark-on-light width where
+    the pixel is darker than the page median `med`, the light-on-dark one
+    where it is lighter, _INF (not valid) where it equals it."""
+    neg = gray < med
+    swt = torch.where(neg, swt_minus,
+                      torch.where(gray > med, swt_plus, _INF))
+    return swt, swt < _INF, neg
 
 
 def _letter_links(swt, valid, neg) -> dict:
@@ -386,66 +407,66 @@ def _letter_links(swt, valid, neg) -> dict:
     return links
 
 
-def _letter_mask_one(gray, swt_minus, swt_plus, med, max_letters, max_runs):
-    """The letter candidates among one page's SWT components, both
-    polarities in one labelling.
+def _run_starts(valid, lab, background: int) -> torch.Tensor:
+    """Pixels that start a row run: a maximal same-label span of a row."""
+    return valid & (lab != shift2d(lab, 0, -1, background))
 
-    The dark-on-light pass keeps only pixels darker than the page median,
-    the light-on-dark pass only lighter ones, so the two sets are
-    disjoint and share one plane; links join equal polarity only.
 
-    A component is a letter if it has enough pixels, a steady stroke
-    width, a moderate aspect and diameter, and a letter's height; one
-    whose box holds more than SWT_MAX_NESTED_LETTERS other letters'
-    boxes of its polarity is a frame and is dropped.
+def _within_run_cap(run_start, max_runs: int, before: int = 0):
+    """Pixels whose row run is among the first max_runs of the page in
+    row-major order, `before` runs lying in the page's rows above."""
+    rank = run_start.flatten().cumsum(0) - 1 + before
+    return (rank < max_runs).view(run_start.shape)
 
-    max_runs bounds the row runs (maximal same-component spans of a row,
-    in row-major order) that take part, as in the reference; max_letters
-    bounds the letters that get a box and the nesting test.
 
-    Returns (mask bool [H,W], boxes int32 [max_letters,4] as (y0, y1,
-    x0, x1), boxes_ok bool [max_letters], n_runs, n_letters)."""
-    h, w = swt_minus.shape
-    n = h * w
-    dev = swt_minus.device
-    neg = gray < med
-    swt = torch.where(neg, swt_minus,
-                      torch.where(gray > med, swt_plus, _INF))
-    valid = swt < _INF
-    labels = label_components_links(
-        valid[None], _letter_links(swt, valid, neg))[0]
-    lab = torch.where(valid, labels, n)
-    run_start = valid & (lab != shift2d(lab, 0, -1, n))
-    n_runs = run_start.sum(dtype=torch.int32)
-    kept = valid
-    if int(n_runs) > max_runs:  # the runs past the cap take no part
-        rank = run_start.flatten().cumsum(0) - 1
-        kept = valid & (rank < max_runs).view(h, w)
-
-    mask = torch.zeros(n, dtype=torch.bool, device=dev)
-    boxes = torch.zeros((max_letters, 4), dtype=torch.int32, device=dev)
-    boxes_ok = torch.zeros(max_letters, dtype=torch.bool, device=dev)
-    n_letters = torch.zeros((), dtype=torch.int32, device=dev)
+def _component_table(lab, kept, swt, neg, row0: int = 0):
+    """The per-component table of the kept pixels of a page's rows [h,W]
+    from row0, grouped by label: (labels int [nc] ascending, the group of
+    each kept pixel [nk], the kept pixels' flat indices in these rows
+    [nk], table). The table holds the pixel count and the sums of the
+    stroke width and its square in float64 (partial sums that add across
+    row blocks), the box extremes in page rows and columns (int64), and
+    the polarity (the links join equal polarity only)."""
+    w = lab.shape[-1]
+    dev = lab.device
     vidx = kept.flatten().nonzero().squeeze(1)
-    if vidx.numel() == 0:
-        return mask.view(h, w), boxes, boxes_ok, n_runs, n_letters
-
     comp, inv = torch.unique(lab.flatten()[vidx], return_inverse=True)
     nc = comp.numel()
     sw = swt.flatten()[vidx].to(torch.float64)
-    ys, xs = vidx // w, vidx % w
+    ys, xs = vidx // w + row0, vidx % w
 
     def total(values):
         return torch.zeros(nc, dtype=torch.float64, device=dev).index_add_(
-            0, inv, values).to(torch.float32)
+            0, inv, values)
 
     def extreme(values, start, how):
         return torch.full((nc,), start, dtype=torch.int64,
                           device=dev).scatter_reduce_(0, inv, values, how)
 
-    cnt, s1, s2 = total(torch.ones_like(sw)), total(sw), total(sw * sw)
-    ymin, ymax = extreme(ys, h, "amin"), extreme(ys, -1, "amax")
-    xmin, xmax = extreme(xs, w, "amin"), extreme(xs, -1, "amax")
+    big = 1 << 40
+    table = {"cnt": total(torch.ones_like(sw)), "s1": total(sw),
+             "s2": total(sw * sw),
+             "ymin": extreme(ys, big, "amin"), "ymax": extreme(ys, -1, "amax"),
+             "xmin": extreme(xs, big, "amin"), "xmax": extreme(xs, -1, "amax"),
+             "neg": extreme(neg.flatten()[vidx].to(torch.int64), 0, "amax")}
+    return comp, inv, vidx, table
+
+
+def _decide(table: dict, max_letters: int):
+    """The letters of a page's component table (labels ascending).
+
+    A component is a letter if it has enough pixels, a steady stroke
+    width, a moderate aspect and diameter, and a letter's height; one
+    whose box holds more than SWT_MAX_NESTED_LETTERS other letters'
+    boxes of its polarity is a frame and is dropped. The nesting test and
+    the boxes take the first max_letters letters by label.
+
+    Returns (keep bool [nc], boxes int32 [max_letters,4] as (y0, y1, x0,
+    x1), boxes_ok bool [max_letters], n_letters)."""
+    cnt, s1, s2 = (table[k].to(torch.float32) for k in ("cnt", "s1", "s2"))
+    ymin, ymax, xmin, xmax = (table[k] for k in ("ymin", "ymax", "xmin",
+                                                 "xmax"))
+    dev = cnt.device
     mean_sw = s1 / cnt
     var_sw = (s2 / cnt - mean_sw * mean_sw).clamp(min=0.0)
     bw = (xmax - xmin + 1).to(torch.float32)
@@ -460,11 +481,9 @@ def _letter_mask_one(gray, swt_minus, swt_plus, med, max_letters, max_runs):
           & (bh <= C.SWT_LETTER_HEIGHT_MAX))
     n_letters = ok.sum(dtype=torch.int32)
 
-    # nesting, among the first max_letters letters by label and within a
-    # polarity (a letter's polarity is that of its least pixel, its label)
     acc = ok.nonzero().squeeze(1)[:max_letters]
     y0, y1, x0, x1 = ymin[acc], ymax[acc], xmin[acc], xmax[acc]
-    r_neg = neg.flatten()[comp[acc]]
+    r_neg = table["neg"][acc]
     contains = ((y0[:, None] <= y0[None, :]) & (y1[:, None] >= y1[None, :])
                 & (x0[:, None] <= x0[None, :]) & (x1[:, None] >= x1[None, :])
                 & (r_neg[:, None] == r_neg[None, :]))
@@ -472,9 +491,42 @@ def _letter_mask_one(gray, swt_minus, swt_plus, med, max_letters, max_runs):
     rejected = contains.sum(1) > C.SWT_MAX_NESTED_LETTERS
     keep = ok.clone()
     keep[acc[rejected]] = False
-    mask[vidx] = keep[inv]
+    boxes = torch.zeros((max_letters, 4), dtype=torch.int32, device=dev)
+    boxes_ok = torch.zeros(max_letters, dtype=torch.bool, device=dev)
     boxes[:acc.numel()] = torch.stack([y0, y1, x0, x1], dim=-1).to(torch.int32)
     boxes_ok[:acc.numel()] = ~rejected
+    return keep, boxes, boxes_ok, n_letters
+
+
+def _letter_mask_one(gray, swt_minus, swt_plus, med, max_letters, max_runs):
+    """The letter candidates among one page's SWT components, both
+    polarities in one labelling.
+
+    The dark-on-light pass keeps only pixels darker than the page median,
+    the light-on-dark pass only lighter ones, so the two sets are
+    disjoint and share one plane; links join equal polarity only.
+
+    max_runs bounds the row runs (maximal same-component spans of a row,
+    in row-major order) that take part, as in the reference; max_letters
+    bounds the letters that get a box and the nesting test (`_decide`).
+
+    Returns (mask bool [H,W], boxes int32 [max_letters,4] as (y0, y1,
+    x0, x1), boxes_ok bool [max_letters], n_runs, n_letters)."""
+    h, w = swt_minus.shape
+    n = h * w
+    swt, valid, neg = _letter_select(gray, swt_minus, swt_plus, med)
+    labels = label_components_links(
+        valid[None], _letter_links(swt, valid, neg))[0]
+    lab = torch.where(valid, labels, n)
+    run_start = _run_starts(valid, lab, n)
+    n_runs = run_start.sum(dtype=torch.int32)
+    kept = valid
+    if int(n_runs) > max_runs:  # the runs past the cap take no part
+        kept = valid & _within_run_cap(run_start, max_runs)
+    _, inv, vidx, table = _component_table(lab, kept, swt, neg)
+    keep, boxes, boxes_ok, n_letters = _decide(table, max_letters)
+    mask = torch.zeros(n, dtype=torch.bool, device=swt.device)
+    mask[vidx] = keep[inv]
     return mask.view(h, w), boxes, boxes_ok, n_runs, n_letters
 
 
@@ -492,29 +544,86 @@ def _letter_mask(gray, swt_minus, swt_plus, max_letters, max_runs):
 # public op
 # --------------------------------------------------------------------------
 
-def _boxes_on_mask(boxes, boxes_ok, h: int, w: int) -> torch.Tensor:
-    """The boxes' perimeters as a bool [B,H,W] mask, from boxes int32
-    [B,N,4] = (y0, y1, x0, x1) and boxes_ok bool [B,N]: each side is a
-    +1/-1 pair in a difference plane, summed along its axis."""
+def _boxes_on_mask(boxes, boxes_ok, h: int, w: int, row0: int = 0,
+                   n_rows: int | None = None) -> torch.Tensor:
+    """The boxes' perimeters on the page rows [row0, row0 + n_rows)
+    (default: all h) as a bool [B,n_rows,W] mask, from boxes int32
+    [B,N,4] = (y0, y1, x0, x1) in page rows and boxes_ok bool [B,N]: each
+    side is a +1/-1 pair in a difference plane, summed along its axis; a
+    vertical side is cut to the rows drawn."""
+    n_rows = h - row0 if n_rows is None else n_rows
     b = boxes.shape[0]
     dev = boxes.device
-    hor = torch.zeros((b, h, w + 1), dtype=torch.int32, device=dev)
-    ver = torch.zeros((b, h + 1, w), dtype=torch.int32, device=dev)
+    hor = torch.zeros((b, n_rows, w + 1), dtype=torch.int32, device=dev)
+    ver = torch.zeros((b, n_rows + 1, w), dtype=torch.int32, device=dev)
     bi, ni = boxes_ok.nonzero(as_tuple=True)
-    y0, y1, x0, x1 = boxes[bi, ni].to(torch.int64).unbind(-1)
+    y0, y1, x0, x1 = (boxes[bi, ni].to(torch.int64) - torch.tensor(
+        [row0, row0, 0, 0], device=dev)).unbind(-1)
     one = torch.ones(bi.shape, dtype=torch.int32, device=dev)
     for y in (y0, y1):
-        hor.index_put_((bi, y, x0), one, accumulate=True)
-        hor.index_put_((bi, y, x1 + 1), -one, accumulate=True)
+        on = (y >= 0) & (y < n_rows)
+        hor.index_put_((bi[on], y[on], x0[on]), one[on], accumulate=True)
+        hor.index_put_((bi[on], y[on], x1[on] + 1), -one[on],
+                       accumulate=True)
+    top, bottom = y0.clamp(min=0), y1.clamp(max=n_rows - 1)
+    on = top <= bottom
     for x in (x0, x1):
-        ver.index_put_((bi, y0, x), one, accumulate=True)
-        ver.index_put_((bi, y1 + 1, x), -one, accumulate=True)
-    return ((hor.cumsum(2)[:, :, :w] > 0) | (ver.cumsum(1)[:, :h] > 0))
+        ver.index_put_((bi[on], top[on], x[on]), one[on], accumulate=True)
+        ver.index_put_((bi[on], bottom[on] + 1, x[on]), -one[on],
+                       accumulate=True)
+    return ((hor.cumsum(2)[:, :, :w] > 0) | (ver.cumsum(1)[:, :n_rows] > 0))
 
 
 def _gray_word(v: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """A byte value v in the R, G and B bytes of a word."""
     return alpha | v | (v << 8) | (v << 16)
+
+
+def check_args(output_type: int, max_len: int) -> None:
+    if max_len > 1023:
+        raise ValueError(
+            f"max_len={max_len} exceeds 1023: the first-edge chain packs "
+            f"the step count into bits 0..10 (it reaches 2 * max_len), so "
+            f"longer rays would carry into the class bits")
+    if output_type not in (C.SWT_OUTPUT_BW_TEXT, C.SWT_OUTPUT_GRAYSCALE_TEXT,
+                           C.SWT_OUTPUT_ORIGINAL_BOXES):
+        raise ValueError(f"unknown swt output_type {output_type}")
+
+
+def caps(h: int, w: int, max_letters: int | None, max_runs: int | None,
+         max_valid: int | None) -> tuple[int, int]:
+    """(max_letters, max_runs) of an H x W page, their defaults filled."""
+    if max_runs is None:
+        max_runs = max_valid if max_valid is not None else max(h * w // 32,
+                                                               1024)
+    if max_letters is None:
+        max_letters = max(h * w // 2048, 1024)
+    return max_letters, max_runs
+
+
+def swt_maps(edges, gx, gy, max_len: int):
+    """Both polarities' width maps and the anchors of a batch [B,H,W],
+    `_MAPS_CHUNK_PIXELS` at a time."""
+    b, h, w = edges.shape
+    step = max(1, _MAPS_CHUNK_PIXELS // (h * w))
+    parts = [_swt_maps_one(None, edges[i:i + step], gx[i:i + step],
+                           gy[i:i + step], max_len)
+             for i in range(0, b, step)]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def compose(words, gray, output_type: int, letter=None, on_box=None):
+    """The output words: the letters (mode 0 black, mode 1 their gray) on
+    white, or the page with the boxes' perimeters `on_box` in red
+    (mode 2); alpha kept."""
+    alpha = words & -0x1000000  # the alpha byte, as int32 bits
+    if output_type == C.SWT_OUTPUT_ORIGINAL_BOXES:
+        return torch.where(on_box, alpha | 0xFF, words)  # red
+    if output_type == C.SWT_OUTPUT_BW_TEXT:
+        ink = torch.full_like(words, C.PF_BLACK)
+    else:
+        ink = torch.round(gray).clamp(0, 255).to(torch.int32)
+    return _gray_word(torch.where(letter, ink, C.PF_WHITE), alpha)
 
 
 def swt(pages: torch.Tensor, output_type: int = C.SWT_OUTPUT_BW_TEXT,
@@ -536,14 +645,7 @@ def swt(pages: torch.Tensor, output_type: int = C.SWT_OUTPUT_BW_TEXT,
     return_debug=True also returns {"n_anchors", "n_runs", "n_letters"}
     (int32 per page) and the caps: compare n_x with max_x to see that no
     cap cut a run short."""
-    if max_len > 1023:
-        raise ValueError(
-            f"max_len={max_len} exceeds 1023: the first-edge chain packs "
-            f"the step count into bits 0..10 (it reaches 2 * max_len), so "
-            f"longer rays would carry into the class bits")
-    if output_type not in (C.SWT_OUTPUT_BW_TEXT, C.SWT_OUTPUT_GRAYSCALE_TEXT,
-                           C.SWT_OUTPUT_ORIGINAL_BOXES):
-        raise ValueError(f"unknown swt output_type {output_type}")
+    check_args(output_type, max_len)
     pages, unb = ensure_batched(pages)
     in_words = pages.dtype == torch.int32
     if not in_words and pages.dtype != torch.uint8:
@@ -552,33 +654,17 @@ def swt(pages: torch.Tensor, output_type: int = C.SWT_OUTPUT_BW_TEXT,
     words = pages if in_words else pages_to_words(pages)
     gray = words_to_gray(words)
     b, h, w = gray.shape
-    if max_runs is None:
-        max_runs = max_valid if max_valid is not None else max(h * w // 32,
-                                                               1024)
-    if max_letters is None:
-        max_letters = max(h * w // 2048, 1024)
+    max_letters, max_runs = caps(h, w, max_letters, max_runs, max_valid)
 
     ggx, ggy = canny_gradients(gray)
     edges = canny_edge_mask_from_gradients(ggx, ggy)
-    step = max(1, _MAPS_CHUNK_PIXELS // (h * w))
-    parts = [_swt_maps_one(gray[i:i + step], edges[i:i + step],
-                           ggx[i:i + step], ggy[i:i + step], max_len)
-             for i in range(0, b, step)]
-    swt_minus, swt_plus, n_anchors = (torch.cat(x) for x in zip(*parts))
-    del parts, ggx, ggy, edges
+    swt_minus, swt_plus, n_anchors = swt_maps(edges, ggx, ggy, max_len)
+    del ggx, ggy, edges
     letter, boxes, boxes_ok, n_runs, n_letters = _letter_mask(
         gray, swt_minus, swt_plus, max_letters, max_runs)
-
-    alpha = words & -0x1000000  # the alpha byte, as int32 bits
-    if output_type == C.SWT_OUTPUT_BW_TEXT:
-        ink = torch.full_like(words, C.PF_BLACK)
-    elif output_type == C.SWT_OUTPUT_GRAYSCALE_TEXT:
-        ink = torch.round(gray).clamp(0, 255).to(torch.int32)
-    if output_type == C.SWT_OUTPUT_ORIGINAL_BOXES:
-        on_box = _boxes_on_mask(boxes, boxes_ok, h, w)
-        out = torch.where(on_box, alpha | 0xFF, words)  # red
-    else:
-        out = _gray_word(torch.where(letter, ink, C.PF_WHITE), alpha)
+    on_box = (_boxes_on_mask(boxes, boxes_ok, h, w)
+              if output_type == C.SWT_OUTPUT_ORIGINAL_BOXES else None)
+    out = compose(words, gray, output_type, letter, on_box)
     if not in_words:
         out = words_to_pages(out)
     out = maybe_unbatch(out, unb)

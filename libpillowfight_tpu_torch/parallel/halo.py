@@ -55,6 +55,20 @@ def exchange_halo_rows(blocks: list, halo: int) -> list:
     return out
 
 
+def stencil_rows(blocks: list, halo: int, fn) -> list:
+    """fn of each row block of a page column plus `halo` exchanged rows
+    above and below (zeros past the page), on the block's device; the
+    block's own rows of the result (a tensor, or a tuple of tensors)."""
+    out = []
+    for b, slab in zip(blocks, exchange_halo_rows(blocks, halo)):
+        with device_scope(b.device):
+            r = fn(slab)
+        own = [t[..., halo: halo + b.shape[-2], :]
+               for t in (r if isinstance(r, tuple) else (r,))]
+        out.append(tuple(own) if isinstance(r, tuple) else own[0])
+    return out
+
+
 def sharded_stencil(fn, mesh: Mesh, halo: int):
     """Wrap fn([B,H,W]) -> [B,H,W] to run rows-sharded with halo exchange.
 
@@ -66,9 +80,8 @@ def sharded_stencil(fn, mesh: Mesh, halo: int):
         x = x if isinstance(x, ShardedPages) else shard_pages(x, mesh)
         out = np.empty_like(x.shards)
         for i, column in enumerate(x.shards):
-            for j, p in enumerate(exchange_halo_rows(list(column), halo)):
-                with device_scope(p.device):
-                    out[i, j] = fn(p)[..., halo: p.shape[-2] - halo, :]
+            for j, r in enumerate(stencil_rows(list(column), halo, fn)):
+                out[i, j] = r
         return ShardedPages(out, x.mesh)
 
     return run

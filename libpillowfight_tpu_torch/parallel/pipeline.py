@@ -32,11 +32,19 @@ from ..ops.unpaper.masks import masks_wipe, masks_wipe_dark
 from ..ops.unpaper.noisefilter import noisefilter_wipe, noisefilter_wipe_nonwhite
 from .mesh import ShardedPages
 from .spatial import run_unpaper_group
+from .spatial_ace import sharded_ace
+from .spatial_edges import sharded_canny, sharded_gaussian, sharded_sobel
+from .spatial_swt import sharded_swt
 
 # filters that run on uint8 RGBA pages (swt also takes int32 words and
 # returns the form it was given)
 _PAGE_FILTERS = {"ace": ace, "canny": canny, "gaussian": gaussian,
                  "sobel": sobel, "swt": swt}
+
+# their counterparts on pages whose rows are sharded
+_SHARDED_FILTERS = {"ace": sharded_ace, "canny": sharded_canny,
+                    "gaussian": sharded_gaussian, "sobel": sharded_sobel,
+                    "swt": sharded_swt}
 
 # gray-plane wipe of each unpaper filter (the fallback path)
 _WIPES = {
@@ -136,23 +144,37 @@ def _default_black_threshold(group) -> bool:
 
 def _run_sharded(x: ShardedPages, spec: tuple) -> ShardedPages:
     """The spec on a batch placed by `shard_pages`. With one row shard a
-    page, each shard runs the whole spec on its device; with more, a run
-    of unpaper filters is the only spec taken (`spatial.py`)."""
+    page, each shard runs the whole spec on its device. With more, the
+    spec is walked as `run_pipeline` walks it: a run of unpaper filters
+    goes to `spatial.run_unpaper_group`, every other filter to its
+    rows-sharded function, and the conversions between words and pages
+    are made shard by shard."""
     if x.shards.shape[1] == 1:
         return x.map(lambda s: run_pipeline(s, spec))
-    other = sorted({name for name, _ in spec if name not in _WIPES})
-    if other:
-        raise NotImplementedError(
-            f"{other} on rows-sharded pages: ROADMAP.md queue 1, item 4 "
-            f"(EDGE_STACK, ace and swt over row shards)")
-    if not spec:
-        return x
-    if x.dtype == torch.int32:
-        return run_unpaper_group(x, spec)
-    if x.dtype != torch.uint8:
+    in_words = x.dtype == torch.int32
+    if not in_words and x.dtype != torch.uint8:
         raise TypeError(f"pages must be uint8 RGBA or int32 words, got "
                         f"{x.dtype}")
-    return run_unpaper_group(x.map(pages_to_words), spec).map(words_to_pages)
+    i, n = 0, len(spec)
+    while i < n:
+        name, kwargs = spec[i]
+        if name in _SHARDED_FILTERS:
+            if x.dtype == torch.int32 and name != "swt":
+                x = x.map(words_to_pages)
+            x = _SHARDED_FILTERS[name](x, **dict(kwargs))
+            i += 1
+            continue
+        j = i
+        while j < n and spec[j][0] in _WIPES:
+            j += 1
+        words = x if x.dtype == torch.int32 else x.map(pages_to_words)
+        x = run_unpaper_group(words, spec[i:j])
+        i = j
+    if not in_words and x.dtype == torch.int32:
+        x = x.map(words_to_pages)
+    elif in_words and x.dtype == torch.uint8:
+        x = x.map(pages_to_words)
+    return x
 
 
 def run_pipeline(pages, spec: tuple):

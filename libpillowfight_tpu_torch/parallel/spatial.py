@@ -28,6 +28,11 @@ Planes are threaded as in `_run_unpaper_group`: each shard's dark and
 non-white planes, the union of its wipes, the live planes after that;
 halos carry the neighbours' live planes (and the grayfilter's s3 after
 the wipes).
+
+`Column` (a page column's row shards and its slab op), `flood`, `across`
+(a page-wide min, max or sum over the shards) and `map_columns` serve
+the other filters' rows-sharded modules too (`spatial_edges.py`,
+`spatial_ace.py`, `spatial_swt.py`).
 """
 
 from __future__ import annotations
@@ -49,8 +54,9 @@ from ..ops.unpaper.noisefilter import noisefilter_wipe_nonwhite
 from .halo import row_slab
 from .mesh import ShardedPages, device_scope
 
-# exchange rounds of each blackfilter flood of the last call of
-# `run_unpaper_group`, one entry a flood (page column by page column)
+# exchange rounds of each flood of the last rows-sharded call (an unpaper
+# group's blackfilter, canny's or swt's hysteresis), one entry a flood
+# (page column by page column)
 flood_rounds: list[int] = []
 
 
@@ -67,12 +73,14 @@ def _window_slab(o: int, h: int, page_h: int, size: int, step: int,
     return lo, (max(last * step + size, o + h) if last >= 0 else o + h)
 
 
-class _Column:
-    """The row shards of one page column: their offsets and the slab op."""
+class Column:
+    """The row shards of one page column: their offsets and the slab op.
+    blocks: any per-shard tensors [B, h_j, ...], top to bottom, each on
+    its shard's device."""
 
-    def __init__(self, words: list):
-        self.words = words
-        self.offs = np.cumsum([0] + [w.shape[1] for w in words]).tolist()
+    def __init__(self, blocks: list):
+        self.blocks = blocks
+        self.offs = np.cumsum([0] + [b.shape[1] for b in blocks]).tolist()
         self.h = self.offs[-1]
 
     def rows(self, j: int) -> tuple[int, int]:
@@ -83,11 +91,11 @@ class _Column:
         holds rows window(o, h) of one plane of `planes` (a list a plane
         of per-shard tensors)."""
         out = []
-        for j, w in enumerate(self.words):
+        for j, b in enumerate(self.blocks):
             o, h = self.rows(j)
             lo, hi = window(o, h)
-            with device_scope(w.device):
-                slabs = [row_slab(p, lo, hi, w.device) for p in planes]
+            with device_scope(b.device):
+                slabs = [row_slab(p, lo, hi, b.device) for p in planes]
                 out.append(core(*slabs)[:, o - lo: o - lo + h])
         return out
 
@@ -99,15 +107,25 @@ class _Column:
             with device_scope(d.device):
                 counts.append(line_counts(d))
         out = []
-        for j, w in enumerate(self.words):
+        for j, b in enumerate(self.blocks):
             o, h = self.rows(j)
-            rows = torch.cat([r.to(w.device) for r, _ in counts], dim=1)
-            cols = sum(c.to(w.device) for _, c in counts)
+            rows = torch.cat([r.to(b.device) for r, _ in counts], dim=1)
+            cols = sum(c.to(b.device) for _, c in counts)
             out.append(core(rows, cols, **kw, row0=o, n_rows=h))
         return out
 
 
-def _flood(col: _Column, seeds: list, mask: list, leap: int) -> list:
+def across(parts: list, op) -> list:
+    """op (`torch.minimum`, `torch.maximum`, `torch.add`) over the row
+    shards' per-page values, one copy of the result on each shard's
+    device. Exact for min and max, and for sums of whole numbers."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = op(acc, p.to(acc.device))
+    return [acc.to(p.device) for p in parts]
+
+
+def flood(col: Column, seeds: list, mask: list, leap: int) -> list:
     """The page's 8-connected flood of `seeds` through `mask` (gaps up to
     `leap` leapt), by rounds of local floods over each shard's rows plus
     `leap` halo rows. A shard floods again only when a neighbour's reach
@@ -138,7 +156,7 @@ def _flood(col: _Column, seeds: list, mask: list, leap: int) -> list:
     return reach
 
 
-def _blackfilter(col: _Column, dark: list,
+def _blackfilter(col: Column, dark: list,
                  scan_size: int = C.BLACKFILTER_SCAN_SIZE,
                  scan_step: int = C.BLACKFILTER_SCAN_STEP,
                  scan_threshold: float = C.BLACKFILTER_SCAN_THRESHOLD,
@@ -147,10 +165,10 @@ def _blackfilter(col: _Column, dark: list,
     seeds = col.slab_op(
         [dark], lambda o, h: _window_slab(o, h, col.h, scan_size, scan_step),
         lambda d: blackfilter_seeds(d, scan_size, scan_step, scan_threshold))
-    return _flood(col, seeds, dark, intensity)
+    return flood(col, seeds, dark, intensity)
 
 
-def _noisefilter(col: _Column, nonwhite: list,
+def _noisefilter(col: Column, nonwhite: list,
                  intensity: int = C.NOISEFILTER_INTENSITY) -> list:
     halo = max(intensity, 0) + 1
     return col.slab_op(
@@ -158,7 +176,7 @@ def _noisefilter(col: _Column, nonwhite: list,
         lambda m: noisefilter_wipe_nonwhite(m, intensity))
 
 
-def _blurfilter(col: _Column, nonwhite: list, size: int = C.BLURFILTER_SIZE,
+def _blurfilter(col: Column, nonwhite: list, size: int = C.BLURFILTER_SIZE,
                 step: int = C.BLURFILTER_STEP,
                 intensity: float = C.BLURFILTER_INTENSITY) -> list:
     check_counts_domain(col.h, size, step)
@@ -168,7 +186,7 @@ def _blurfilter(col: _Column, nonwhite: list, size: int = C.BLURFILTER_SIZE,
         lambda m: blurfilter_wipe_nonwhite(m, size, step, intensity))
 
 
-def _grayfilter(col: _Column, dark: list, s3: list,
+def _grayfilter(col: Column, dark: list, s3: list,
                 size: int = C.GRAYFILTER_SIZE, step: int = C.GRAYFILTER_STEP,
                 threshold: float = C.GRAYFILTER_THRESHOLD) -> list:
     check_counts_domain(col.h, size, step)
@@ -179,7 +197,7 @@ def _grayfilter(col: _Column, dark: list, s3: list,
 
 def _run_column(words: list, group) -> list:
     """The group on the int32 word row blocks of one page column."""
-    col = _Column(words)
+    col = Column(words)
     dark0, nonwhite0 = [], []
     for w in words:
         gray0 = words_to_gray(w)
@@ -218,12 +236,18 @@ def _run_column(words: list, group) -> list:
     return [wipe_white_words(w, a) for w, a in zip(words, acc)]
 
 
+def map_columns(x: ShardedPages, fn) -> ShardedPages:
+    """fn(row blocks of a page column, the column's first page) -> its
+    output blocks, for every page column; `flood_rounds` cleared first."""
+    flood_rounds.clear()
+    out = np.empty_like(x.shards)
+    for i, column in enumerate(x.shards):
+        for j, block in enumerate(fn(list(column), x.page_offsets[i])):
+            out[i, j] = block
+    return ShardedPages(out, x.mesh)
+
+
 def run_unpaper_group(words: ShardedPages, group) -> ShardedPages:
     """A run of unpaper filters on int32 words [B,H,W] sharded over pages
     and rows; bit-identical to the group on the gathered batch."""
-    flood_rounds.clear()
-    out = np.empty_like(words.shards)
-    for i, column in enumerate(words.shards):
-        for j, w in enumerate(_run_column(list(column), group)):
-            out[i, j] = w
-    return ShardedPages(out, words.mesh)
+    return map_columns(words, lambda column, _: _run_column(column, group))

@@ -110,6 +110,28 @@ def snake_pages(b: int, h: int, w: int, arms: int = 6) -> np.ndarray:
     return pages
 
 
+def lit_snake_pages(b: int, h: int, w: int, arms: int = 6,
+                    faint: int | None = None) -> np.ndarray:
+    """uint8 RGBA [b,h,w,4]: the 3-px snake of `snake_pages`, bright
+    (240) on black, without the square. On black the page's edge has no
+    gradient, so canny's edges are the snake's and SWT's strokes are its
+    arms: one component that crosses every row-shard boundary. With
+    `faint`, every part of the snake but its first 34 rows has that gray:
+    canny's strong pixels lie at its start and its hysteresis follows the
+    faint arms from shard to shard."""
+    pages = np.zeros((b, h, w, 4), np.uint8)
+    pages[..., 3] = 255
+    xs = [30 + SNAKE_PITCH * i for i in range(arms)]
+    v = 240 if faint is None else faint
+    for i, x in enumerate(xs):
+        pages[:, 6:h - 6, x:x + 3, :3] = v
+        if i + 1 < arms:
+            y = h - 9 if i % 2 == 0 else 6
+            pages[:, y:y + 3, x:xs[i + 1] + 3, :3] = v
+    pages[:, 6:40, xs[0]:xs[0] + 3, :3] = 240
+    return pages
+
+
 def _snake(h: int, w: int, x0: int, arms: int, vertical: bool):
     """A one-pixel path of `arms` parallel arms two pixels apart, joined at
     alternating ends, from column (or row) x0 on; the seed is its start."""

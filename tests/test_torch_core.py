@@ -190,6 +190,65 @@ def test_c_entries_match_their_ctypes_signatures():
     assert declared == _build._SIGNATURES
 
 
+def test_every_kernel_launch_goes_through_the_device_guard(monkeypatch):
+    """No module of the port names a C entry but `_build`: each wrapper
+    hands the entry's name to `_build.launch` (the kernels) or
+    `_build.host_size` (the two host-side sizes), and every entry is
+    reached that way. `launch` calls the entry inside
+    `torch.cuda.device(t.device)` and raises on its error code."""
+    import ast
+    import contextlib
+    import types
+
+    from libpillowfight_tpu_torch import _build
+
+    named, passed, seen = [], set(), set()
+    for path in sorted(_build.CSRC.parent.rglob("*.py")):
+        if path.name == "_build.py":
+            continue
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Attribute):
+                assert not node.attr.startswith("pft_"), (path, node.attr)
+            if isinstance(node, ast.Constant) and \
+                    node.value in _build._SIGNATURES:
+                named.append(node)  # keeps the node, and so its id, alive
+            if (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and node.func.attr in ("launch", "host_size")
+                    and getattr(node.func.value, "id", "") == "_build"):
+                passed.add(id(node.args[0]))
+                seen.add((node.func.attr, node.args[0].value))
+    assert named and all(id(n) in passed for n in named)
+    sizes = {"pft_flood_packed_smem", "pft_label_scratch_bytes"}
+    assert seen == {("host_size" if n in sizes else "launch", n)
+                    for n in _build._SIGNATURES}
+
+    current = [torch.device("cuda", 0)]
+
+    @contextlib.contextmanager
+    def device(dev):
+        current.append(torch.device(dev))
+        try:
+            yield
+        finally:
+            current.pop()
+
+    calls = []
+    lib = types.SimpleNamespace(
+        pft_line_counts=lambda *a: calls.append((current[-1], a)) or 0,
+        pft_pack_rows=lambda *a: 700)
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 7)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    t = types.SimpleNamespace(device=torch.device("cuda", 1))
+    _build.launch("pft_line_counts", t, 11, 12)
+    assert calls == [(torch.device("cuda", 1), (11, 12, 7))]
+    assert current == [torch.device("cuda", 0)]
+    with pytest.raises(RuntimeError, match="pft_pack_rows: CUDA error 700"):
+        _build.launch("pft_pack_rows", t)
+    assert current == [torch.device("cuda", 0)]
+
+
 def test_synthetic_pages_equal_bench_pages():
     """The port's page generator is byte-identical to the one the JAX
     package's bench.py times, for the same arguments."""

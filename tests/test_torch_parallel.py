@@ -305,12 +305,19 @@ def test_rows_sharded_words_and_black_threshold():
 
 
 def test_rows_sharded_other_filters_raise():
-    x = shard_pages(torch.from_numpy(synthetic_pages(1, 64, 64)),
-                    _cpu_mesh(2))
+    """The other filters no longer raise on rows-sharded pages: each is
+    the unsharded result (`tests/test_torch_parallel_filters.py` holds
+    them case by case). Pages that are neither uint8 nor int32 raise."""
+    pages = torch.from_numpy(synthetic_pages(1, 64, 64))
+    x = shard_pages(pages, _cpu_mesh(2))
     for spec in (pt.EDGE_STACK, [("ace", {})], [("swt", {})],
                  [("unpaper_border", ()), ("gaussian", ())]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            pt.run_pipeline(x, pt.normalize_spec(spec))
+        spec = pt.normalize_spec(spec)
+        assert torch.equal(pt.run_pipeline(x, spec).gather(),
+                           pt.run_pipeline(pages, spec))
+    with pytest.raises(TypeError, match="uint8 RGBA or int32"):
+        pt.run_pipeline(shard_pages(pages.float(), _cpu_mesh(2)),
+                        pt.normalize_spec(pt.EDGE_STACK))
 
 
 # --- pages only --------------------------------------------------------------
