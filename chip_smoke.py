@@ -106,7 +106,15 @@
      wall clock from the first source call to the last sink (decode and
      both copies in, the files in the page cache), the time spent
      waiting on the source, and the device's idle share from one profiled
-     chunk; the files are deleted afterwards;
+     chunk; both take the runner's default mesh, (1, 1) on one card;
+7a. runs the same two corpora through `parallel.BatchRunner(mesh=)`, each
+   chunk padded to the pages axis and placed as `shard_pages` places it,
+   every page held to run_pipeline on the card bit for bit, each run
+   counted: DOCUMENT_CLEANUP over 64 pages on (1, 1), (2, 2) and (1, 2)
+   of cuda:0; config 5's spec over 32 pages on (1, 1) and (1, 2) of
+   cuda:0; with several cards, both over a pages-only mesh and a rows = 2
+   mesh of every card; pages/s and MP/s beside the (1, 1) runner's; the
+   files are deleted afterwards;
 7b. drives the distribution layer on the card, each call counted:
    `parallel.dryrun_multichip(4, devices=["cuda:0"] * 4)` (and over
    every card where there are several); the rows-sharded chain at A4 x 4
@@ -123,7 +131,8 @@
    each counted, each record printed, every stage's time above 0;
 9. prints the kernels line (JSON; beside the contract's keys each kernel
    has `kernel_ms`, `other_device_ms` and `host_ms`; `launches` sums the
-   counted paths of 5, 5b, 7, 7b and 8), then the result line (JSON), last.
+   counted paths of 5, 5b, 7, 7a, 7b and 8), then the result line (JSON),
+   last.
 
 Any failed phase raises, and the exit code is then non-zero.
 
@@ -1573,10 +1582,11 @@ class PageCheck:
                 f"delivered")
 
 
-def check_runner(total: dict, dev) -> None:
+def check_runner(total: dict, dev) -> tuple:
     """DOCUMENT_CLEANUP through `io.ImagePageSource` -> `BatchRunner` on
     PPM files: bit-identical to run_pipeline on the card; then killed at
-    the third chunk by its source and resumed from the manifest."""
+    the third chunk by its source and resumed from the manifest. Returns
+    the corpus' paths and run_pipeline's output of each file."""
     import os
 
     import numpy as np
@@ -1641,16 +1651,18 @@ def check_runner(total: dict, dev) -> None:
     log(f"runner killed at chunk 3 by its source after {first} pages were "
         f"delivered, resumed from the manifest: {m2.pages} more, every page "
         f"delivered once, bit-identical to run_pipeline")
+    return paths, want
 
 
-def config5(total: dict, dev, card: str) -> None:
+def config5(total: dict, dev, card: str) -> tuple:
     """Config 5 (BASELINE.json configs[4]): DOCUMENT_CLEANUP then swt over
     CONFIG5_PAGES A4 pages, read from CORPUS_FILES distinct `text_pages`
     PPM files through `io.ImagePageSource` -> `BatchRunner`. Wall clock
     from the first source call to the last sink, decode and both copies
     in; the files were just written, so they sit in the page cache and
     no disk read is in the number. Then one chunk again under the
-    profiler, for the device's idle share."""
+    profiler, for the device's idle share. Returns the corpus' paths and
+    run_pipeline's output of each file."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1707,12 +1719,87 @@ def config5(total: dict, dev, card: str) -> None:
     if busy_us <= 0:
         log("config 5: device idle share not measured (the profiler shows "
             "no device time)")
-        return
-    log(f"config 5: one profiled chunk ({RUNNER_CHUNK} pages, its source "
-        f"decoded without prefetch): {busy_us / 1e3:.2f} ms of device time "
-        f"(kernels and copies) in {profiled_ms:.2f} ms profiled; against the "
-        f"unprofiled run's {chunk_ms:.2f} ms a chunk: device idle share "
-        f"{max(0.0, 1 - busy_us / 1e3 / chunk_ms):.1%}")
+    else:
+        log(f"config 5: one profiled chunk ({RUNNER_CHUNK} pages, its source "
+            f"decoded without prefetch): {busy_us / 1e3:.2f} ms of device "
+            f"time (kernels and copies) in {profiled_ms:.2f} ms profiled; "
+            f"against the unprofiled run's {chunk_ms:.2f} ms a chunk: device "
+            f"idle share {max(0.0, 1 - busy_us / 1e3 / chunk_ms):.1%}")
+    return paths, want
+
+
+MESH_CONFIG5_PAGES = 32
+
+
+def check_mesh_runner(total: dict, dev, card: str, cleanup: tuple,
+                      text: tuple) -> None:
+    """Phase 7a: `BatchRunner(mesh=)` over the PPM corpora of the runner
+    and config 5 (`cleanup`, `text`: paths and run_pipeline's output of
+    each file), every page held by `PageCheck` to run_pipeline on the
+    card, each run counted: the chain over RUNNER_PAGES pages on (1, 1)
+    of cuda:0 (the one-device runner), (2, 2) and (1, 2) of cuda:0;
+    config 5's spec over MESH_CONFIG5_PAGES pages on (1, 1) and (1, 2) of
+    cuda:0; with several cards, both over a pages-only mesh and a rows = 2
+    mesh of every card. Pages/s and MP/s over the wall clock from the
+    first source call to the last sink, beside the one-device runner's."""
+    from libpillowfight_tpu_torch import io as pio
+    from libpillowfight_tpu_torch.parallel import (BatchRunner, make_mesh,
+                                                   normalize_spec)
+
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    one = (f"(1, 1) of {dev}", make_mesh(devices=[dev]))
+    rows2 = (f"(1, 2) of {dev}", make_mesh(2, rows=2, devices=[dev] * 2))
+    several = []
+    if n_cards > 1:
+        several.append((f"({n_cards}, 1) over {n_cards} cards", make_mesh()))
+        if n_cards % 2 == 0:
+            several.append((f"({n_cards // 2}, 2) over {n_cards} cards",
+                            make_mesh(rows=2)))
+    runs = [
+        ("DOCUMENT_CLEANUP", DOCUMENT_CLEANUP, cleanup, RUNNER_PAGES,
+         CHAIN_KERNELS,
+         [one, (f"(2, 2) of {dev}", make_mesh(4, rows=2, devices=[dev] * 4)),
+          rows2, *several]),
+        ("config 5's spec", DOCUMENT_CLEANUP + (("swt", {}),), text,
+         MESH_CONFIG5_PAGES, CHAIN_KERNELS + ["gaussian_sep", "label_links"],
+         [one, rows2, *several]),
+    ]
+    for what, spec, (paths, want), n, expect, meshes in runs:
+        spec = normalize_spec(spec)
+        cycle = [paths[j % len(paths)] for j in range(n)]
+        mp = n * A4_H * A4_W / 1e6
+        base = None
+        for label, mesh in meshes:
+            check = PageCheck(want)
+            with pio.ImagePageSource(cycle, shape=(A4_H, A4_W)) as src:
+                source = TimedSource(src)
+                runner = BatchRunner(spec, chunk_size=RUNNER_CHUNK, mesh=mesh)
+                m, counts = counted(lambda: runner.run(n, source, check),
+                                    f"mesh runner {what} on {label}", expect)
+                failed = src.failed
+            for k in total:
+                total[k] += counts[k]
+            check.expect_once(n, f"mesh runner {what} on {label}")
+            if failed or m.pages != n:
+                raise AssertionError(f"mesh runner {what} on {label}: "
+                                     f"{failed} pages failed to decode, "
+                                     f"{m.pages} processed")
+            wall = check.t_last - source.t_first
+            rate = n / wall
+            base = base or rate
+            log(f"mesh runner {what}, {n} A4 pages from {len(paths)} PPM "
+                f"files, chunk {RUNNER_CHUNK}, on {label}: every page "
+                f"delivered once, bit-identical to run_pipeline on the card; "
+                f"{wall:.3f} s wall clock, {rate:.3f} pages/s, "
+                f"{mp / wall:.2f} MP/s ({rate / base:.3f}x the one-device "
+                f"runner's {base:.3f} pages/s); {json.dumps(m.to_dict())}; "
+                f"chunks (s): {', '.join(f'{t:.3f}' for t in m.chunk_seconds)}"
+                f"; {source.summary()}; {check.seconds:.3f} s in the sink; on "
+                f"{card}")
+    if n_cards == 1:
+        log("mesh runner: one card, no mesh of distinct cards exercised")
+    log(f"phase 7a: {time.perf_counter() - t0:.1f} s")
 
 
 # -- the measurement tools ---------------------------------------------------
@@ -2623,8 +2710,11 @@ def main() -> int:
     # 7. the façade, the runner and config 5, each call counted
     try:
         check_facade(total)
-        check_runner(total, dev)
-        config5(total, dev, card)
+        cleanup_corpus = check_runner(total, dev)
+        text_corpus = config5(total, dev, card)
+        # 7a. the runner on (pages, rows) meshes, each call counted
+        check_mesh_runner(total, dev, card, cleanup_corpus, text_corpus)
+        del cleanup_corpus, text_corpus
     finally:
         shutil.rmtree(corpus_dir(), ignore_errors=True)
     # 7b. the distribution layer, each call counted

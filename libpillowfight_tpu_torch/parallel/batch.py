@@ -1,11 +1,12 @@
-"""Large-batch runner: resumable, metered page processing over the cards
-(port of `libpillowfight_tpu/parallel/batch.py`).
+"""Large-batch runner: resumable, metered page processing on a device
+mesh (port of `libpillowfight_tpu/parallel/batch.py`).
 
   * page-index manifest for resume (crash -> rerun skips finished
     chunks); a manifest written by either package resumes under the
     other: same lines, claim files and chunk ownership,
-  * chunks round-robin over the devices (data parallelism over pages: a
-    page fits one card),
+  * each chunk placed on the (pages, rows) mesh as `shard_pages` places
+    it, padded to the pages axis: its pages split over the pages axis,
+    each page's rows over the rows axis, every shard on its device,
   * structured throughput metrics (pages/sec, MP/s, per-chunk timings),
   * per-chunk retry (transient failure -> bounded re-execution),
   * work stealing from hosts whose heartbeat went stale.
@@ -21,6 +22,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .mesh import (PAGES_AXIS, ROWS_AXIS, ShardedPages, _page_blocks,
+                   make_mesh, shard_pages)
 from .pipeline import compile_pipeline, normalize_spec
 
 # retry only device/runtime failures (CUDA errors, torch.cuda.
@@ -78,17 +81,17 @@ class BatchMetrics:
         }
 
 
-def _devices(devices) -> list[torch.device]:
-    if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass devices=['cpu'] to run "
-                               "the plain versions on the CPU")
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    out = [torch.device(d) for d in devices]
-    if not out:
-        raise ValueError("devices is empty")
-    return out
+def _copy_block(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst.copy_(src), asynchronous, between a card and pinned memory,
+    where one side is a block of a page batch (pages p0:p1, rows r0:r1):
+    such a block is contiguous a page, so it goes as one copy a page
+    unless it is contiguous whole. A strided copy would be staged through
+    a temporary, synchronously."""
+    if dst.is_contiguous() and src.is_contiguous():
+        dst.copy_(src, non_blocking=True)
+    else:
+        for d, s in zip(dst, src):
+            d.copy_(s, non_blocking=True)
 
 
 class BatchRunner:
@@ -100,25 +103,36 @@ class BatchRunner:
     resumable.
     """
 
-    def __init__(self, spec, chunk_size: int = 64, devices=None,
+    def __init__(self, spec, chunk_size: int = 64, mesh=None,
                  manifest_path: str | None = None, max_retries: int = 2,
                  host_id: int = 0, n_hosts: int = 1, heartbeat=None,
-                 steal_poll: float = 1.0):
-        """devices: where chunks run, round-robin (None: every CUDA
-        device; raises where there is none). host_id/n_hosts partition
-        chunks round-robin across hosts (a chunk's owner = chunk_index %
-        n_hosts); `heartbeat` (a multihost.Heartbeat over a shared
-        directory) enables the failure RESPONSE: after finishing its own
-        chunks, a host steals and reprocesses the unfinished chunks of
-        any host whose heartbeat has gone stale, and waits on live peers
-        until the whole batch is done. Steals are de-duplicated via
-        O_EXCL claim files next to the manifest (a claim older than the
-        heartbeat timeout is treated as abandoned and re-claimable), so
-        completion is at-least-once."""
+                 steal_poll: float = 1.0, *, devices=None):
+        """mesh: a (pages, rows) `Mesh` that every chunk is placed on
+        (None: `make_mesh()`, every CUDA card on the pages axis; raises
+        where there is none). devices: shorthand for
+        `make_mesh(devices=devices)`, a pages-only mesh (`["cpu"]` runs
+        the plain versions on the CPU); not with mesh.
+
+        host_id/n_hosts partition chunks round-robin across hosts (a
+        chunk's owner = chunk_index % n_hosts); `heartbeat` (a
+        multihost.Heartbeat over a shared directory) enables the failure
+        RESPONSE: after finishing its own chunks, a host steals and
+        reprocesses the unfinished chunks of any host whose heartbeat has
+        gone stale, and waits on live peers until the whole batch is
+        done. Steals are de-duplicated via O_EXCL claim files next to the
+        manifest (a claim older than the heartbeat timeout is treated as
+        abandoned and re-claimable), so completion is at-least-once."""
         self.spec = normalize_spec(spec)
         self.fn = compile_pipeline(self.spec)
         self.chunk_size = chunk_size
-        self.devices = _devices(devices)
+        if mesh is not None and devices is not None:
+            raise ValueError("give mesh= or devices=, not both")
+        self.mesh = mesh if mesh is not None else make_mesh(devices=devices)
+        if tuple(self.mesh.axis_names) != (PAGES_AXIS, ROWS_AXIS):
+            raise ValueError(f"BatchRunner needs a mesh of axes "
+                             f"{(PAGES_AXIS, ROWS_AXIS)}, got "
+                             f"{tuple(self.mesh.axis_names)}")
+        self._cuda = all(d.type == "cuda" for d in self.mesh.devices.flat)
         self.manifest_path = manifest_path
         self.max_retries = max_retries
         self.host_id = host_id
@@ -129,7 +143,6 @@ class BatchRunner:
             raise ValueError("work stealing needs a shared manifest_path")
         self._done: set[int] = set()
         self._streams: dict = {}   # cuda device -> (h2d, d2h) side streams
-        self._dispatched = 0       # round-robin position over the devices
         self._reload_done()
 
     def _reload_done(self) -> None:
@@ -176,75 +189,107 @@ class BatchRunner:
             f.write(str(self.host_id))
         return True
 
-    def _launch(self, pages: np.ndarray, dev: torch.device):
-        """Enqueue one chunk on `dev`: host copy into a pinned buffer, the
-        copy to the card on a side stream, the pipeline on the device's
-        current stream once that copy has landed, the copy back into a
-        pinned buffer on a second side stream. Returns (host output
-        tensor, event that marks it complete; None on the CPU).
+    def _pad_to_mesh(self, pages: np.ndarray) -> np.ndarray:
+        """Pad a chunk to a multiple of the pages axis (last chunk or
+        chunk_size not divisible by the mesh) by repeating page 0."""
+        pad = -len(pages) % self.mesh.devices.shape[0]
+        if pad:
+            pages = np.concatenate([pages, np.repeat(pages[:1], pad, 0)])
+        return pages
 
-        Returns only once the copy to the card is complete: the source's
+    def _side_streams(self, dev: torch.device) -> tuple:
+        if dev not in self._streams:
+            self._streams[dev] = (torch.cuda.Stream(dev),
+                                  torch.cuda.Stream(dev))
+        return self._streams[dev]
+
+    def _launch(self, pages: np.ndarray):
+        """Place one chunk on the mesh and enqueue the pipeline on it.
+        On CUDA devices: a host copy of the chunk into a pinned buffer;
+        each shard (the pages and rows of `shard_pages`' offsets) copied
+        from its block of it to its card on that device's side stream,
+        its device's current stream waiting on that copy; the pipeline
+        on the shards; each output shard copied back into its block of
+        one pinned output buffer on its device's second side stream.
+        Returns (host output batch, one completion event a device), or
+        (host batch, None) on the CPU.
+
+        Returns only once every copy to a card is complete: the source's
         buffer and the pinned input may be reused as soon as this
-        returns, while the card still computes the previous chunk."""
-        pages = np.ascontiguousarray(pages)
-        if dev.type != "cuda":
-            # own copy: the source's buffer is overwritten by its next call
-            return self.fn(torch.from_numpy(pages.copy())), None
-        with torch.cuda.device(dev):
-            if dev not in self._streams:
-                self._streams[dev] = (torch.cuda.Stream(dev),
-                                      torch.cuda.Stream(dev))
-            h2d, d2h = self._streams[dev]
-            compute = torch.cuda.current_stream(dev)
-            src = torch.from_numpy(pages)
-            pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-            pinned.copy_(src)
-            with torch.cuda.stream(h2d):
-                x = pinned.to(dev, non_blocking=True)
-                loaded = torch.cuda.Event()
-                loaded.record(h2d)
-            loaded.synchronize()
-            compute.wait_event(loaded)
+        returns, while the cards still compute the previous chunk."""
+        src = torch.from_numpy(np.ascontiguousarray(pages))
+        if not self._cuda:
+            # shard_pages copies every shard: the source's buffer is
+            # overwritten by its next call
+            out = self.fn(shard_pages(src, self.mesh))
+            return out.gather(torch.device("cpu")), None
+        grid = self.mesh.devices
+        pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        pinned.copy_(src)
+        shards = np.empty(grid.shape, dtype=object)
+        loaded = []
+        for idx, block in np.ndenumerate(_page_blocks(pinned, grid.shape)):
+            dev = grid[idx]
+            h2d, _ = self._side_streams(dev)
+            with torch.cuda.device(dev), torch.cuda.stream(h2d):
+                x = torch.empty(block.shape, dtype=block.dtype, device=dev)
+                _copy_block(x, block)
+                shards[idx] = x
+                loaded.append(torch.cuda.Event())
+                loaded[-1].record(h2d)
+        for ev in loaded:
+            ev.synchronize()
+        for x, ev in zip(shards.flat, loaded):
+            compute = torch.cuda.current_stream(x.device)
+            compute.wait_event(ev)
             x.record_stream(compute)
-            out = self.fn(x)
-            computed = torch.cuda.Event()
-            computed.record(compute)
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            d2h.wait_event(computed)
-            with torch.cuda.stream(d2h):
-                host.copy_(out, non_blocking=True)
-                out.record_stream(d2h)
-                done = torch.cuda.Event()
-                done.record(d2h)
-        return host, done
+        out = self.fn(ShardedPages(shards, self.mesh))
+        # the pipeline keeps each shard's pages and rows
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        blocks = _page_blocks(host, grid.shape)
+        done = {}
+        for idx, y in np.ndenumerate(out.shards):
+            dev = y.device
+            _, d2h = self._side_streams(dev)
+            with torch.cuda.device(dev):
+                if dev not in done:
+                    computed = torch.cuda.Event()
+                    computed.record(torch.cuda.current_stream(dev))
+                    d2h.wait_event(computed)
+                    done[dev] = torch.cuda.Event()
+                with torch.cuda.stream(d2h):
+                    _copy_block(blocks[idx], y)
+                    y.record_stream(d2h)
+        for dev, ev in done.items():
+            with torch.cuda.device(dev):
+                ev.record(self._streams[dev][1])
+        return host, list(done.values())
 
     def _dispatch_chunk(self, start: int, total_pages: int, source,
                         m: BatchMetrics | None = None) -> dict:
-        """Load a chunk from the source and enqueue copy + compute on the
-        next device. Returns once the chunk is on the card: its compute
-        and the copy back run while the host loads the NEXT chunk — the
-        pipelined run() keeps one chunk in flight, overlapping the copies
-        with compute (SURVEY.md §7 hard-part 5: overlap loading with
-        compute).
+        """Load a chunk from the source, pad it to the mesh and enqueue
+        copies + compute. Returns once the chunk is on the cards: its
+        compute and the copies back run while the host loads the NEXT
+        chunk — the pipelined run() keeps one chunk in flight,
+        overlapping the copies with compute (SURVEY.md §7 hard-part 5:
+        overlap loading with compute).
 
         Synchronous copy/dispatch failures get the same bounded retry as
         asynchronous ones."""
         n = min(self.chunk_size, total_pages - start)
         idx = np.arange(start, start + n)
-        dev = self.devices[self._dispatched % len(self.devices)]
-        self._dispatched += 1
-        pages = np.asarray(source(idx))
+        pages = self._pad_to_mesh(np.asarray(source(idx)))
         for attempt in range(self.max_retries + 1):
             try:
                 t0 = time.perf_counter()
-                out, done = self._launch(pages, dev)
+                out, done = self._launch(pages)
                 break
             except _RETRYABLE:
                 if attempt == self.max_retries:
                     raise
                 if m is not None:
                     m.retries += 1
-        return {"start": start, "n": n, "idx": idx, "t0": t0, "dev": dev,
+        return {"start": start, "n": n, "idx": idx, "t0": t0,
                 "shape": pages.shape, "out": out, "done": done}
 
     def _complete_chunk(self, info: dict, source, sink,
@@ -255,16 +300,16 @@ class BatchRunner:
         re-run it."""
         for attempt in range(self.max_retries + 1):
             try:
-                if info["done"] is not None:
-                    info["done"].synchronize()
+                for ev in info["done"] or ():
+                    ev.synchronize()
                 out = info["out"].numpy()
                 break
             except _RETRYABLE:
                 if attempt == self.max_retries:
                     raise
                 m.retries += 1
-                pages = np.asarray(source(info["idx"]))
-                info["out"], info["done"] = self._launch(pages, info["dev"])
+                pages = self._pad_to_mesh(np.asarray(source(info["idx"])))
+                info["out"], info["done"] = self._launch(pages)
         dt = time.perf_counter() - info["t0"]
         n = info["n"]
         if sink is not None:

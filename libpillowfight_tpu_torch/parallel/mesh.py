@@ -146,6 +146,18 @@ class ShardedPages:
                           for row in self.shards], dim=0)
 
 
+def _page_blocks(pages: torch.Tensor, shape: tuple) -> np.ndarray:
+    """Views of a page batch's blocks on a (pages, rows) grid of `shape`:
+    block [i, j] holds the i-th run of pages and the j-th run of rows,
+    runs split by `_bounds`."""
+    pb, rb = _bounds(pages.shape[0], shape[0]), _bounds(pages.shape[1],
+                                                        shape[1])
+    grid = np.empty(shape, dtype=object)
+    for i, j in np.ndindex(*shape):
+        grid[i, j] = pages[pb[i]:pb[i + 1], rb[j]:rb[j + 1]]
+    return grid
+
+
 def shard_pages(pages, mesh: Mesh) -> ShardedPages:
     """Place a page batch [B, H, ...] on the mesh: B over the pages axis,
     H over the rows axis, each shard a contiguous copy on its device. H
@@ -155,11 +167,10 @@ def shard_pages(pages, mesh: Mesh) -> ShardedPages:
     if pages.ndim < 3 or pages.shape[0] < n_p or pages.shape[1] < n_r:
         raise ValueError(f"pages {tuple(pages.shape)} do not fill a "
                          f"({n_p}, {n_r}) mesh")
-    pb, rb = _bounds(pages.shape[0], n_p), _bounds(pages.shape[1], n_r)
     shards = np.empty((n_p, n_r), dtype=object)
-    for (i, j), dev in np.ndenumerate(mesh.devices):
-        shards[i, j] = pages[pb[i]:pb[i + 1], rb[j]:rb[j + 1]].to(
-            dev, copy=True, memory_format=torch.contiguous_format)
+    for idx, block in np.ndenumerate(_page_blocks(pages, (n_p, n_r))):
+        shards[idx] = block.to(mesh.devices[idx], copy=True,
+                               memory_format=torch.contiguous_format)
     return ShardedPages(shards, mesh)
 
 

@@ -5,14 +5,14 @@
         [--device cuda|cpu] [--out PATH]
 
 The reference sweeps GSPMD virtual devices and `jax.distributed`
-processes. The port has no mesh and no collective: its hosts share only
-the manifest directory, through `BatchRunner(host_id, n_hosts,
-heartbeat)`. So this runs DOCUMENT_CLEANUP through the runner over N
-pages of `utils.pages.synthetic_pages`, chunk C, first as one process,
-then as two OS processes (host_id 0 and 1, n_hosts 2) on one manifest and
-one `Heartbeat` directory, and records each run's wall time and pages/s
-and `parallel_overhead_pct = 100 (T2 - T1) / T1`. It checks that every
-page was delivered exactly once across the processes.
+processes. Here the runner's hosts share no collective, only the
+manifest directory, through `BatchRunner(host_id, n_hosts, heartbeat)`,
+each on a one-device mesh. So this runs DOCUMENT_CLEANUP through the
+runner over N pages of `utils.pages.synthetic_pages`, chunk C, first as
+one process, then as two OS processes (host_id 0 and 1, n_hosts 2) on
+one manifest and one `Heartbeat` directory, and records each run's wall
+time and pages/s and `parallel_overhead_pct = 100 (T2 - T1) / T1`. It
+checks that every page was delivered exactly once across the processes.
 
 Both processes share cuda:0 (with `--device cpu`, the CPU). One card
 means this is the overhead of the runner's split, not scaling:

@@ -304,7 +304,7 @@ def test_rows_sharded_words_and_black_threshold():
                        pt.run_pipeline(words, spec))
 
 
-def test_rows_sharded_other_filters_raise():
+def test_rows_sharded_other_filters_match_unsharded():
     """The other filters no longer raise on rows-sharded pages: each is
     the unsharded result (`tests/test_torch_parallel_filters.py` holds
     them case by case). Pages that are neither uint8 nor int32 raise."""
