@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.metrics import span
 from . import constants as C
 
 
@@ -55,9 +56,11 @@ def _third(s3: torch.Tensor) -> torch.Tensor:
     XLA rewrites the division by 3.0 into a product with f32(1/3), one
     ulp off the exact quotient for some sums. torch's CUDA division by a
     scalar does the same and its CPU division does not, so the product is
-    written out to be the same on both devices."""
-    return s3.to(torch.float32) * torch.tensor(1.0 / 3.0, dtype=torch.float32,
-                                               device=s3.device)
+    written out to be the same on both devices. The scalar's copy to a
+    card waits for the card's queued work: the span `sync.third`."""
+    with span("sync.third"):
+        third = torch.tensor(1.0 / 3.0, dtype=torch.float32, device=s3.device)
+    return s3.to(torch.float32) * third
 
 
 def _channels(words: torch.Tensor):

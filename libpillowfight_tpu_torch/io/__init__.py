@@ -13,6 +13,8 @@ the host's real job — decoding and staging pages. `native/libpfio.so`
     the previous chunk; plugs straight into `BatchRunner(source=...)`.
 
 Pure-numpy fallbacks keep everything working if g++ is unavailable.
+While a profiler runs, opening a page source (its path list, its decode
+pool) is the span `io.open` (`utils.metrics.span`).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import os
 import subprocess
 
 import numpy as np
+
+from ..utils.metrics import span
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _SO = os.path.join(_REPO, "native", "libpfio.so")
@@ -194,16 +198,17 @@ class PnmPageSource:
 
     def __init__(self, paths, shape: tuple[int, int],
                  n_threads: int | None = None, prefetch: bool = True):
-        self.paths = [os.fspath(p) for p in paths]
-        self.shape = (int(shape[0]), int(shape[1]))
-        self.prefetch = prefetch
-        n_threads = n_threads or min(16, os.cpu_count() or 4)
-        self._lib = _load()
-        self._pool = None
-        if self._lib is not None:
-            joined = "\n".join(self.paths).encode()
-            self._pool = self._lib.pfio_pool_new(
-                joined, n_threads, self.shape[0], self.shape[1])
+        with span("io.open"):
+            self.paths = [os.fspath(p) for p in paths]
+            self.shape = (int(shape[0]), int(shape[1]))
+            self.prefetch = prefetch
+            n_threads = n_threads or min(16, os.cpu_count() or 4)
+            self._lib = _load()
+            self._pool = None
+            if self._lib is not None:
+                joined = "\n".join(self.paths).encode()
+                self._pool = self._lib.pfio_pool_new(
+                    joined, n_threads, self.shape[0], self.shape[1])
         self._bufs = [None, None]   # lazily allocated per chunk size
         self._pending = None        # (start, n, buf_index)
         self.failed = 0
@@ -306,11 +311,12 @@ class ImagePageSource:
                  n_threads: int | None = None, prefetch: bool = True):
         import concurrent.futures as cf
 
-        self.paths = [os.fspath(p) for p in paths]
-        self.shape = (int(shape[0]), int(shape[1]))
-        self.prefetch = prefetch
-        self._pool = cf.ThreadPoolExecutor(
-            max_workers=n_threads or min(16, os.cpu_count() or 4))
+        with span("io.open"):
+            self.paths = [os.fspath(p) for p in paths]
+            self.shape = (int(shape[0]), int(shape[1]))
+            self.prefetch = prefetch
+            self._pool = cf.ThreadPoolExecutor(
+                max_workers=n_threads or min(16, os.cpu_count() or 4))
         self._bufs = [None, None]
         self._pending = None  # (start, n, slot, [futures])
         self.failed = 0

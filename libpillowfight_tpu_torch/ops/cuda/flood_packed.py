@@ -22,7 +22,9 @@ from . import expect, use_kernel
 # launch counts of the kernel wrappers; "flood_round" counts floods: the
 # kernel runs all the rounds of a flood in one launch
 launches = {"pack_rows": 0, "unpack_rows": 0, "flood_round": 0}
-last_info = None  # int32 [4] on the card; [3] = rounds of the last flood
+# int32 [4] on the flood's device; [3] = rounds of the last flood, the
+# final one that changes nothing included (the plain version fills [3])
+last_info = None
 MAX_SHARED_BYTES = 232_448 - 4096  # a block's dynamic share, less the static
 
 
@@ -170,12 +172,14 @@ def flood_round_plain(m: torch.Tensor, r: torch.Tensor, leap: int
 def _flood(step, r: torch.Tensor, max_iters: int) -> torch.Tensor:
     """Rounds as the reference runs them: two, then more while the last
     one changed something and fewer than max_iters have run."""
+    global last_info
     r, _ = step(r)
     r, changed = step(r)
     i = 2
     while i < max_iters and int(changed.sum()) > 0:
         r, changed = step(r)
         i += 1
+    last_info = torch.tensor([0, 0, 0, i], dtype=torch.int32)
     return r
 
 
@@ -225,8 +229,8 @@ def flood_packed_cuda(seeds_w: torch.Tensor, mask_w: torch.Tensor, h: int,
 
 
 def rounds_of_last_flood() -> int:
-    """Rounds the last `flood_packed_cuda` ran (reads the card: for
-    measurement, not for the paths)."""
+    """Rounds the last packed flood ran (reads the card after
+    `flood_packed_cuda`: for measurement, not for the paths)."""
     return int(last_info[3])
 
 

@@ -18,11 +18,15 @@ import torch
 
 from ... import _build
 from ...core.bitmap import shift2d
+from ...utils.metrics import span
 from . import expect, use_kernel
 
 MAX_LEAP = 384  # 1024 threads a block less a halo of `leap` on each side
 
 launches = 0  # launches of the kernel (each a sweep down and a sweep up)
+# rounds of the last flood: the kernel's launches, or the plain version's
+# rounds, the final one that adds nothing included
+last_rounds = 0
 
 
 def _args(seeds, mask, leap, max_iters) -> tuple:
@@ -72,10 +76,13 @@ def flood_sweep_plain(seeds: torch.Tensor, mask: torch.Tensor, leap: int = 1,
     """The reference's round on byte planes in plain torch (segmented OR
     along rows, along columns, dilation of radius `leap` gated by the
     mask), until a round changes nothing or max_iters rounds have run."""
+    global last_rounds
     leap, max_iters = _args(seeds, mask, leap, max_iters)
     mask = mask.to(torch.bool)
     r = seeds.to(torch.bool) & mask
+    last_rounds = 0
     for _ in range(max_iters):
+        last_rounds += 1
         new = _seg_or(mask, r, 2)
         new = _seg_or(mask, new, 1)
         new = (_dilate(new, leap) & mask) | new
@@ -132,10 +139,13 @@ def flood_sweep_cuda(seeds: torch.Tensor, mask: torch.Tensor, leap: int = 1,
     mask = mask.to(torch.bool).contiguous()
     reach = seeds.to(torch.bool) & mask
     changed = torch.zeros(1, dtype=torch.int64, device=mask.device)
-    total = 0
+    global last_rounds
+    total = last_rounds = 0
     for _ in range(max_iters):
         sweep_cuda(mask, reach, changed, leap)
-        now = int(changed)  # the launch's one read on the host
+        last_rounds += 1
+        with span("sync.flood_sweep"):
+            now = int(changed)  # the launch's one read on the host
         if now == total:
             break
         total = now

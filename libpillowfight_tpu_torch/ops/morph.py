@@ -8,6 +8,9 @@ flood, the small-cluster mask from k = 16 and the neighbourhood helpers
 are plain torch on either device, as the reference runs them outside any
 kernel. The flood and the labels are exact fixed points, so their results
 do not depend on the round structure, only on the connectivity.
+
+While a profiler runs, each 8-connected flood of `flood_reach` is the span
+`flood` and counts its rounds as `flood.rounds` (`utils.metrics`).
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from ..core.bitmap import shift2d
+from ..utils import metrics
+from .cuda import flood_packed as fp
+from .cuda import flood_sweep as fs
 from .cuda.flood_packed import flood_packed, lsr, pack_rows, unpack_rows
 from .cuda.flood_sweep import _seg_or, flood_sweep
 from .cuda.label import label_links, mask_links
@@ -99,7 +105,9 @@ def _flood4(seeds: torch.Tensor, mask: torch.Tensor,
         new = _seg_or(mask, r, 2)
         new = _seg_or(mask, new, 1)
         new = (dilate4(new) & mask) | new
-        if torch.equal(new, r):
+        with metrics.span("sync.flood4"):
+            done = torch.equal(new, r)
+        if done:
             break
         r = new
     return r
@@ -137,11 +145,16 @@ def flood_reach(seeds: torch.Tensor, mask: torch.Tensor,
     seeds = seeds.to(torch.bool)
     if connectivity == 4:
         return _flood4(seeds, mask, max_iters)
-    if not packed_fits(h, w):  # both floods keep the seeds inside the mask
-        return flood_sweep(seeds, mask, leap=leap, max_iters=max_iters)
-    out = flood_packed(pack_rows(seeds), pack_rows(mask), h, w, leap=leap,
-                       max_iters=max_iters)
-    return unpack_rows(out, h)
+    with metrics.span("flood"):
+        if not packed_fits(h, w):  # both floods keep the seeds in the mask
+            out = flood_sweep(seeds, mask, leap=leap, max_iters=max_iters)
+            metrics.count("flood.rounds", fs.last_rounds)
+            return out
+        out = flood_packed(pack_rows(seeds), pack_rows(mask), h, w,
+                           leap=leap, max_iters=max_iters)
+        if metrics.tracing():  # a view of the card's count: nothing read
+            metrics.count("flood.rounds", fp.last_info[3:4])
+        return unpack_rows(out, h)
 
 
 def label_components(mask: torch.Tensor, connectivity: int = 8,

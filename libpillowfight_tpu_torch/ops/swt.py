@@ -33,6 +33,10 @@ dense shifts on this hardware and the values are the same:
 Components of similar stroke width come from
 `morph.label_components_links` (the label kernel on a CUDA tensor).
 
+While a profiler runs, the width maps are the span `swt.width_maps`, with
+the stream time of their device work, and each host read the span
+`sync.swt_<site>` (`utils.metrics.span`).
+
 Outputs (the reference's enum):
   SWT_OUTPUT_BW_TEXT         0: letter pixels black on white
   SWT_OUTPUT_GRAYSCALE_TEXT  1: letter pixels keep their gray on white
@@ -50,6 +54,7 @@ from ..core import constants as C
 from ..core.bitmap import (_third, ensure_batched, maybe_unbatch,
                            pages_to_words, shift2d, words_to_gray,
                            words_to_pages)
+from ..utils.metrics import span
 from .canny import canny_edge_mask_from_gradients, canny_gradients
 from .cuda.label import OFFSETS
 from .morph import label_components_links
@@ -289,12 +294,14 @@ def _ray_medians(swt_s: torch.Tensor, a_enc_s: torch.Tensor) -> torch.Tensor:
     rays of up to 13 cells."""
     h, w = swt_s.shape[-2:]
     med_map = torch.full_like(swt_s, _INF)
-    idx = ((a_enc_s >> 16) != 0).flatten().nonzero().squeeze(1)
+    with span("sync.swt_ray_medians"):
+        idx = ((a_enc_s >> 16) != 0).flatten().nonzero().squeeze(1)
     if idx.numel() == 0:
         return med_map
     state = a_enc_s.flatten()[idx]
     u, kcls = state & 2047, ((state >> 11) & 31).to(torch.int64)
-    vecs = torch.tensor(_VECS, dtype=torch.int64, device=swt_s.device)
+    with span("sync.swt_ray_vectors"):  # a copy to the card waits too
+        vecs = torch.tensor(_VECS, dtype=torch.int64, device=swt_s.device)
     rem = idx % (h * w)
     j = torch.arange(_MED_SAMPLES, device=swt_s.device)
     yy = (rem // w)[:, None] + j * vecs[kcls, 0][:, None]
@@ -358,8 +365,9 @@ def _gray_hist(gray: torch.Tensor) -> torch.Tensor:
     b = gray.shape[0]
     s3 = torch.round(gray * 3.0).to(torch.int64)
     page = torch.arange(b, device=gray.device).view(b, 1, 1)
-    return torch.bincount((s3 + 766 * page).flatten(),
-                          minlength=766 * b).view(b, 766)
+    with span("sync.swt_gray_hist"):  # bincount reads its input's max
+        return torch.bincount((s3 + 766 * page).flatten(),
+                              minlength=766 * b).view(b, 766)
 
 
 def _median_from_hist(hist: torch.Tensor, ntot: int) -> torch.Tensor:
@@ -429,8 +437,9 @@ def _component_table(lab, kept, swt, neg, row0: int = 0):
     the polarity (the links join equal polarity only)."""
     w = lab.shape[-1]
     dev = lab.device
-    vidx = kept.flatten().nonzero().squeeze(1)
-    comp, inv = torch.unique(lab.flatten()[vidx], return_inverse=True)
+    with span("sync.swt_component_table"):
+        vidx = kept.flatten().nonzero().squeeze(1)
+        comp, inv = torch.unique(lab.flatten()[vidx], return_inverse=True)
     nc = comp.numel()
     sw = swt.flatten()[vidx].to(torch.float64)
     ys, xs = vidx // w + row0, vidx % w
@@ -481,7 +490,8 @@ def _decide(table: dict, max_letters: int):
           & (bh <= C.SWT_LETTER_HEIGHT_MAX))
     n_letters = ok.sum(dtype=torch.int32)
 
-    acc = ok.nonzero().squeeze(1)[:max_letters]
+    with span("sync.swt_letters"):
+        acc = ok.nonzero().squeeze(1)[:max_letters]
     y0, y1, x0, x1 = ymin[acc], ymax[acc], xmin[acc], xmax[acc]
     r_neg = table["neg"][acc]
     contains = ((y0[:, None] <= y0[None, :]) & (y1[:, None] >= y1[None, :])
@@ -490,7 +500,8 @@ def _decide(table: dict, max_letters: int):
     contains.fill_diagonal_(False)
     rejected = contains.sum(1) > C.SWT_MAX_NESTED_LETTERS
     keep = ok.clone()
-    keep[acc[rejected]] = False
+    with span("sync.swt_nested"):
+        keep[acc[rejected]] = False
     boxes = torch.zeros((max_letters, 4), dtype=torch.int32, device=dev)
     boxes_ok = torch.zeros(max_letters, dtype=torch.bool, device=dev)
     boxes[:acc.numel()] = torch.stack([y0, y1, x0, x1], dim=-1).to(torch.int32)
@@ -521,7 +532,9 @@ def _letter_mask_one(gray, swt_minus, swt_plus, med, max_letters, max_runs):
     run_start = _run_starts(valid, lab, n)
     n_runs = run_start.sum(dtype=torch.int32)
     kept = valid
-    if int(n_runs) > max_runs:  # the runs past the cap take no part
+    with span("sync.swt_runs"):
+        over = int(n_runs) > max_runs
+    if over:  # the runs past the cap take no part
         kept = valid & _within_run_cap(run_start, max_runs)
     _, inv, vidx, table = _component_table(lab, kept, swt, neg)
     keep, boxes, boxes_ok, n_letters = _decide(table, max_letters)
@@ -556,21 +569,23 @@ def _boxes_on_mask(boxes, boxes_ok, h: int, w: int, row0: int = 0,
     dev = boxes.device
     hor = torch.zeros((b, n_rows, w + 1), dtype=torch.int32, device=dev)
     ver = torch.zeros((b, n_rows + 1, w), dtype=torch.int32, device=dev)
-    bi, ni = boxes_ok.nonzero(as_tuple=True)
-    y0, y1, x0, x1 = (boxes[bi, ni].to(torch.int64) - torch.tensor(
-        [row0, row0, 0, 0], device=dev)).unbind(-1)
-    one = torch.ones(bi.shape, dtype=torch.int32, device=dev)
-    for y in (y0, y1):
-        on = (y >= 0) & (y < n_rows)
-        hor.index_put_((bi[on], y[on], x0[on]), one[on], accumulate=True)
-        hor.index_put_((bi[on], y[on], x1[on] + 1), -one[on],
-                       accumulate=True)
-    top, bottom = y0.clamp(min=0), y1.clamp(max=n_rows - 1)
-    on = top <= bottom
-    for x in (x0, x1):
-        ver.index_put_((bi[on], top[on], x[on]), one[on], accumulate=True)
-        ver.index_put_((bi[on], bottom[on] + 1, x[on]), -one[on],
-                       accumulate=True)
+    with span("sync.swt_boxes"):  # nonzero and the masked indexing
+        bi, ni = boxes_ok.nonzero(as_tuple=True)
+        y0, y1, x0, x1 = (boxes[bi, ni].to(torch.int64) - torch.tensor(
+            [row0, row0, 0, 0], device=dev)).unbind(-1)
+        one = torch.ones(bi.shape, dtype=torch.int32, device=dev)
+        for y in (y0, y1):
+            on = (y >= 0) & (y < n_rows)
+            hor.index_put_((bi[on], y[on], x0[on]), one[on], accumulate=True)
+            hor.index_put_((bi[on], y[on], x1[on] + 1), -one[on],
+                           accumulate=True)
+        top, bottom = y0.clamp(min=0), y1.clamp(max=n_rows - 1)
+        on = top <= bottom
+        for x in (x0, x1):
+            ver.index_put_((bi[on], top[on], x[on]), one[on],
+                           accumulate=True)
+            ver.index_put_((bi[on], bottom[on] + 1, x[on]), -one[on],
+                           accumulate=True)
     return ((hor.cumsum(2)[:, :, :w] > 0) | (ver.cumsum(1)[:, :n_rows] > 0))
 
 
@@ -606,10 +621,11 @@ def swt_maps(edges, gx, gy, max_len: int):
     `_MAPS_CHUNK_PIXELS` at a time."""
     b, h, w = edges.shape
     step = max(1, _MAPS_CHUNK_PIXELS // (h * w))
-    parts = [_swt_maps_one(None, edges[i:i + step], gx[i:i + step],
-                           gy[i:i + step], max_len)
-             for i in range(0, b, step)]
-    return tuple(torch.cat(x) for x in zip(*parts))
+    with span("swt.width_maps", device=edges):
+        parts = [_swt_maps_one(None, edges[i:i + step], gx[i:i + step],
+                               gy[i:i + step], max_len)
+                 for i in range(0, b, step)]
+        return tuple(torch.cat(x) for x in zip(*parts))
 
 
 def compose(words, gray, output_type: int, letter=None, on_box=None):

@@ -4,7 +4,9 @@
 Block statistics are exact integer window sums (cumulative sums in
 int32); the reference computes the same integers with XLA reductions.
 Threshold compares are made in float32, as JAX casts a Python scalar to
-the f32 dtype of the plane.
+the f32 dtype of the plane. While a profiler runs, the window sums and
+the coverage are the span `unpaper.block_stats`, with the stream time of
+their device work.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 from ...core import constants as C
 from ...core.bitmap import (ensure_batched, maybe_unbatch, pages_to_words,
                             wipe_white_words, words_to_gray, words_to_pages)
+from ...utils.metrics import span
 from ..cuda.linecount import line_counts
 
 __all__ = ["apply_wipe", "block_counts", "block_sums", "block_sums_u16",
@@ -22,8 +25,11 @@ __all__ = ["apply_wipe", "block_counts", "block_sums", "block_sums_u16",
 
 
 def f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    """A Python scalar as a float32 scalar tensor on like's device."""
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    """A Python scalar as a float32 scalar tensor on like's device. Its
+    copy to a card waits for the card's queued work: the span
+    `sync.f32`."""
+    with span("sync.f32"):
+        return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
 def apply_wipe(pages: torch.Tensor, wipe_fn, **kwargs) -> torch.Tensor:
@@ -77,8 +83,9 @@ def _window_sums(x: torch.Tensor, size: int, step: int, dim: int,
 def _block_sums(x: torch.Tensor, size: int, step: int) -> torch.Tensor:
     nby = _n_blocks(x.shape[1], size, step)
     nbx = _n_blocks(x.shape[2], size, step)
-    y = _window_sums(x, size, step, 1, nby)
-    return _window_sums(y, size, step, 2, nbx).to(torch.float32)
+    with span("unpaper.block_stats", device=x):
+        y = _window_sums(x, size, step, 1, nby)
+        return _window_sums(y, size, step, 2, nbx).to(torch.float32)
 
 
 def _fold_windows(x: torch.Tensor, size: int, step: int,
@@ -155,8 +162,9 @@ def coverage_from_blocks(blocks: torch.Tensor, shape: tuple, size: int,
     """bool grid [B,nby,nbx] -> bool [B,H,W], true where a selected
     block's footprint covers the pixel."""
     _, h, w = shape
-    rows = _coverage_axis(blocks, h, size, step, 1)
-    return _coverage_axis(rows, w, size, step, 2)
+    with span("unpaper.block_stats", device=blocks):
+        rows = _coverage_axis(blocks, h, size, step, 1)
+        return _coverage_axis(rows, w, size, step, 2)
 
 
 def wipe_white(pages: torch.Tensor, wipe: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,13 @@ mesh (port of `libpillowfight_tpu/parallel/batch.py`).
   * structured throughput metrics (pages/sec, MP/s, per-chunk timings),
   * per-chunk retry (transient failure -> bounded re-execution),
   * work stealing from hosts whose heartbeat went stale.
+
+While a profiler runs, each stage of a chunk is a span whose request is
+the chunk's start index (`utils.metrics.span`): `runner.source`,
+`runner.stage_in` (padding, the pinned copy, issuing the copies to the
+cards), `runner.wait_loaded`, `runner.issue` (the pipeline),
+`runner.stage_out` (issuing the copies back), `runner.wait_done`,
+`runner.sink` and `runner.manifest`.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..utils.metrics import span
 from .mesh import (PAGES_AXIS, ROWS_AXIS, ShardedPages, _page_blocks,
                    make_mesh, shard_pages)
 from .pipeline import compile_pipeline, normalize_spec
@@ -203,8 +211,9 @@ class BatchRunner:
                                   torch.cuda.Stream(dev))
         return self._streams[dev]
 
-    def _launch(self, pages: np.ndarray):
-        """Place one chunk on the mesh and enqueue the pipeline on it.
+    def _launch(self, pages: np.ndarray, start: int):
+        """Place one chunk (padded to the mesh here) on the mesh and
+        enqueue the pipeline on it.
         On CUDA devices: a host copy of the chunk into a pinned buffer;
         each shard (the pages and rows of `shard_pages`' offsets) copied
         from its block of it to its card on that device's side stream,
@@ -217,52 +226,64 @@ class BatchRunner:
         Returns only once every copy to a card is complete: the source's
         buffer and the pinned input may be reused as soon as this
         returns, while the cards still compute the previous chunk."""
-        src = torch.from_numpy(np.ascontiguousarray(pages))
         if not self._cuda:
-            # shard_pages copies every shard: the source's buffer is
-            # overwritten by its next call
-            out = self.fn(shard_pages(src, self.mesh))
-            return out.gather(torch.device("cpu")), None
+            with span("runner.stage_in", request=start):
+                # shard_pages copies every shard: the source's buffer is
+                # overwritten by its next call
+                x = shard_pages(torch.from_numpy(np.ascontiguousarray(
+                    self._pad_to_mesh(pages))), self.mesh)
+            with span("runner.issue", request=start):
+                out = self.fn(x)
+            with span("runner.stage_out", request=start):
+                return out.gather(torch.device("cpu")), None
         grid = self.mesh.devices
-        pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-        pinned.copy_(src)
-        shards = np.empty(grid.shape, dtype=object)
-        loaded = []
-        for idx, block in np.ndenumerate(_page_blocks(pinned, grid.shape)):
-            dev = grid[idx]
-            h2d, _ = self._side_streams(dev)
-            with torch.cuda.device(dev), torch.cuda.stream(h2d):
-                x = torch.empty(block.shape, dtype=block.dtype, device=dev)
-                _copy_block(x, block)
-                shards[idx] = x
-                loaded.append(torch.cuda.Event())
-                loaded[-1].record(h2d)
-        for ev in loaded:
-            ev.synchronize()
-        for x, ev in zip(shards.flat, loaded):
-            compute = torch.cuda.current_stream(x.device)
-            compute.wait_event(ev)
-            x.record_stream(compute)
-        out = self.fn(ShardedPages(shards, self.mesh))
+        with span("runner.stage_in", request=start):
+            src = torch.from_numpy(np.ascontiguousarray(
+                self._pad_to_mesh(pages)))
+            pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            pinned.copy_(src)
+            shards = np.empty(grid.shape, dtype=object)
+            loaded = []
+            for idx, block in np.ndenumerate(_page_blocks(pinned,
+                                                          grid.shape)):
+                dev = grid[idx]
+                h2d, _ = self._side_streams(dev)
+                with torch.cuda.device(dev), torch.cuda.stream(h2d):
+                    x = torch.empty(block.shape, dtype=block.dtype,
+                                    device=dev)
+                    _copy_block(x, block)
+                    shards[idx] = x
+                    loaded.append(torch.cuda.Event())
+                    loaded[-1].record(h2d)
+        with span("runner.wait_loaded", request=start):
+            for ev in loaded:
+                ev.synchronize()
+            for x, ev in zip(shards.flat, loaded):
+                compute = torch.cuda.current_stream(x.device)
+                compute.wait_event(ev)
+                x.record_stream(compute)
+        with span("runner.issue", request=start):
+            out = self.fn(ShardedPages(shards, self.mesh))
         # the pipeline keeps each shard's pages and rows
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        blocks = _page_blocks(host, grid.shape)
-        done = {}
-        for idx, y in np.ndenumerate(out.shards):
-            dev = y.device
-            _, d2h = self._side_streams(dev)
-            with torch.cuda.device(dev):
-                if dev not in done:
-                    computed = torch.cuda.Event()
-                    computed.record(torch.cuda.current_stream(dev))
-                    d2h.wait_event(computed)
-                    done[dev] = torch.cuda.Event()
-                with torch.cuda.stream(d2h):
-                    _copy_block(blocks[idx], y)
-                    y.record_stream(d2h)
-        for dev, ev in done.items():
-            with torch.cuda.device(dev):
-                ev.record(self._streams[dev][1])
+        with span("runner.stage_out", request=start):
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            blocks = _page_blocks(host, grid.shape)
+            done = {}
+            for idx, y in np.ndenumerate(out.shards):
+                dev = y.device
+                _, d2h = self._side_streams(dev)
+                with torch.cuda.device(dev):
+                    if dev not in done:
+                        computed = torch.cuda.Event()
+                        computed.record(torch.cuda.current_stream(dev))
+                        d2h.wait_event(computed)
+                        done[dev] = torch.cuda.Event()
+                    with torch.cuda.stream(d2h):
+                        _copy_block(blocks[idx], y)
+                        y.record_stream(d2h)
+            for dev, ev in done.items():
+                with torch.cuda.device(dev):
+                    ev.record(self._streams[dev][1])
         return host, list(done.values())
 
     def _dispatch_chunk(self, start: int, total_pages: int, source,
@@ -278,11 +299,12 @@ class BatchRunner:
         asynchronous ones."""
         n = min(self.chunk_size, total_pages - start)
         idx = np.arange(start, start + n)
-        pages = self._pad_to_mesh(np.asarray(source(idx)))
+        with span("runner.source", request=start):
+            pages = np.asarray(source(idx))
         for attempt in range(self.max_retries + 1):
             try:
                 t0 = time.perf_counter()
-                out, done = self._launch(pages)
+                out, done = self._launch(pages, start)
                 break
             except _RETRYABLE:
                 if attempt == self.max_retries:
@@ -298,23 +320,28 @@ class BatchRunner:
         Asynchronous device errors surface here; retries re-fetch the
         chunk from the source (its buffer may have been recycled) and
         re-run it."""
+        start = info["start"]
         for attempt in range(self.max_retries + 1):
             try:
-                for ev in info["done"] or ():
-                    ev.synchronize()
-                out = info["out"].numpy()
+                with span("runner.wait_done", request=start):
+                    for ev in info["done"] or ():
+                        ev.synchronize()
+                    out = info["out"].numpy()
                 break
             except _RETRYABLE:
                 if attempt == self.max_retries:
                     raise
                 m.retries += 1
-                pages = self._pad_to_mesh(np.asarray(source(info["idx"])))
-                info["out"], info["done"] = self._launch(pages)
+                with span("runner.source", request=start):
+                    pages = np.asarray(source(info["idx"]))
+                info["out"], info["done"] = self._launch(pages, start)
         dt = time.perf_counter() - info["t0"]
         n = info["n"]
         if sink is not None:
-            sink(info["idx"], out[:n])
-        self._mark_done(info["start"], n, dt)
+            with span("runner.sink", request=start):
+                sink(info["idx"], out[:n])
+        with span("runner.manifest", request=start):
+            self._mark_done(start, n, dt)
         m.pages += n
         m.megapixels += n * info["shape"][1] * info["shape"][2] / 1e6
         m.chunks += 1

@@ -6,6 +6,11 @@ words, threading two bool planes (dark, non-white) between the stages: a
 wiped pixel becomes exactly white, so `plane & ~wipe` equals re-deriving
 the plane from the wiped page. swt takes words or RGBA as they come;
 every other filter runs on uint8 RGBA.
+
+While a profiler runs, a call is the span `pipeline` (a request id of its
+own, or its caller's), each filter the span `filter.<name>` (with the
+stream time of its device work) and an unpaper group `unpaper.group`
+(`utils.metrics.span`).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from ..ops.unpaper.common import dark_mask, nonwhite_mask, wipe_white
 from ..ops.unpaper.grayfilter import grayfilter_wipe, grayfilter_wipe_planes_s3
 from ..ops.unpaper.masks import masks_wipe, masks_wipe_dark
 from ..ops.unpaper.noisefilter import noisefilter_wipe, noisefilter_wipe_nonwhite
+from ..utils.metrics import new_request, span
 from .mesh import ShardedPages
 from .spatial import run_unpaper_group
 from .spatial_ace import sharded_ace
@@ -103,23 +109,24 @@ def _run_unpaper_group(words: torch.Tensor, group) -> torch.Tensor:
 
     for name, kwargs in group:
         kw = dict(kwargs)
-        if name == "unpaper_blackfilter":
-            kw.pop("black_threshold", None)  # the default: dark0 holds it
-            wipe = blackfilter_wipe_dark(live(dark0), **kw)
-        elif name == "unpaper_noisefilter":
-            wipe = noisefilter_wipe_nonwhite(live(nonwhite0), **kw)
-        elif name == "unpaper_blurfilter":
-            wipe = blurfilter_wipe_nonwhite(live(nonwhite0), **kw)
-        elif name == "unpaper_masks":
-            wipe = masks_wipe_dark(live(dark0), **kw)
-        elif name == "unpaper_grayfilter":
-            s3 = words_to_s3(words)  # a wiped pixel is white: s3 = 765
-            if acc is not None:
-                s3 = torch.where(acc, 765, s3)
-            wipe = grayfilter_wipe_planes_s3(live(dark0), s3, **kw)
-        else:  # unpaper_border
-            wipe = border_wipe_dark(live(dark0), **kw)
-        acc = wipe if acc is None else acc | wipe
+        with span(f"filter.{name}", device=words):
+            if name == "unpaper_blackfilter":
+                kw.pop("black_threshold", None)  # the default: dark0 holds it
+                wipe = blackfilter_wipe_dark(live(dark0), **kw)
+            elif name == "unpaper_noisefilter":
+                wipe = noisefilter_wipe_nonwhite(live(nonwhite0), **kw)
+            elif name == "unpaper_blurfilter":
+                wipe = blurfilter_wipe_nonwhite(live(nonwhite0), **kw)
+            elif name == "unpaper_masks":
+                wipe = masks_wipe_dark(live(dark0), **kw)
+            elif name == "unpaper_grayfilter":
+                s3 = words_to_s3(words)  # a wiped pixel is white: s3 = 765
+                if acc is not None:
+                    s3 = torch.where(acc, 765, s3)
+                wipe = grayfilter_wipe_planes_s3(live(dark0), s3, **kw)
+            else:  # unpaper_border
+                wipe = border_wipe_dark(live(dark0), **kw)
+            acc = wipe if acc is None else acc | wipe
     return wipe_white_words(words, acc)
 
 
@@ -129,9 +136,10 @@ def _run_unpaper_group_gray(pages: torch.Tensor, group) -> torch.Tensor:
     gray = rgba_to_gray(pages)
     acc = None
     for name, kwargs in group:
-        wipe = _WIPES[name](gray, **dict(kwargs))
-        gray = torch.where(wipe, 255.0, gray)
-        acc = wipe if acc is None else acc | wipe
+        with span(f"filter.{name}", device=pages):
+            wipe = _WIPES[name](gray, **dict(kwargs))
+            gray = torch.where(wipe, 255.0, gray)
+            acc = wipe if acc is None else acc | wipe
     return wipe_white(pages, acc)
 
 
@@ -161,14 +169,16 @@ def _run_sharded(x: ShardedPages, spec: tuple) -> ShardedPages:
         if name in _SHARDED_FILTERS:
             if x.dtype == torch.int32 and name != "swt":
                 x = x.map(words_to_pages)
-            x = _SHARDED_FILTERS[name](x, **dict(kwargs))
+            with span(f"filter.{name}"):
+                x = _SHARDED_FILTERS[name](x, **dict(kwargs))
             i += 1
             continue
         j = i
         while j < n and spec[j][0] in _WIPES:
             j += 1
         words = x if x.dtype == torch.int32 else x.map(pages_to_words)
-        x = run_unpaper_group(words, spec[i:j])
+        with span("unpaper.group"):
+            x = run_unpaper_group(words, spec[i:j])
         i = j
     if not in_words and x.dtype == torch.int32:
         x = x.map(words_to_pages)
@@ -183,8 +193,14 @@ def run_pipeline(pages, spec: tuple):
     device. A run of unpaper filters works on words, swt on either form,
     any other filter on RGBA, converted to before it and back at the
     end. A ShardedPages (`mesh.shard_pages`) gives a ShardedPages."""
-    if isinstance(pages, ShardedPages):
-        return _run_sharded(pages, spec)
+    with span("pipeline", request=new_request()):
+        if isinstance(pages, ShardedPages):
+            return _run_sharded(pages, spec)
+        return _run_pages(pages, spec)
+
+
+def _run_pages(pages, spec: tuple):
+    """`run_pipeline` on a tensor."""
     x, unb = ensure_batched(pages)
     in_words = x.dtype == torch.int32
     if not in_words and x.dtype != torch.uint8:
@@ -196,7 +212,8 @@ def run_pipeline(pages, spec: tuple):
         if name in _PAGE_FILTERS:
             if x.dtype == torch.int32 and name != "swt":
                 x = words_to_pages(x)
-            x = _PAGE_FILTERS[name](x, **dict(kwargs))
+            with span(f"filter.{name}", device=x):
+                x = _PAGE_FILTERS[name](x, **dict(kwargs))
             i += 1
             continue
         j = i
@@ -204,11 +221,12 @@ def run_pipeline(pages, spec: tuple):
             j += 1
         group = spec[i:j]
         words = x if x.dtype == torch.int32 else pages_to_words(x)
-        if _default_black_threshold(group):
-            x = _run_unpaper_group(words, group)
-        else:
-            x = pages_to_words(
-                _run_unpaper_group_gray(words_to_pages(words), group))
+        with span("unpaper.group", device=words):
+            if _default_black_threshold(group):
+                x = _run_unpaper_group(words, group)
+            else:
+                x = pages_to_words(
+                    _run_unpaper_group_gray(words_to_pages(words), group))
         i = j
     if in_words and x.dtype == torch.uint8:
         x = pages_to_words(x)

@@ -51,6 +51,7 @@ from ..ops.unpaper.common import (_n_blocks, check_counts_domain, dark_mask,
 from ..ops.unpaper.grayfilter import grayfilter_wipe_planes_s3
 from ..ops.unpaper.masks import masks_wipe_profiles
 from ..ops.unpaper.noisefilter import noisefilter_wipe_nonwhite
+from ..utils.metrics import span
 from .halo import row_slab
 from .mesh import ShardedPages, device_scope
 
@@ -145,9 +146,10 @@ def flood(col: Column, seeds: list, mask: list, leap: int) -> list:
                 r = flood_reach(row_slab(reach, lo, hi, dev),
                                 row_slab(mask, lo, hi, dev), connectivity=8,
                                 leap=leap)[:, o - lo: o - lo + h]
-            grew = (r != reach[j]).any(dim=2).any(dim=0).nonzero()
-            if len(grew):
-                spans.append((j, o + int(grew[0]), o + int(grew[-1]) + 1))
+            with span("sync.spatial_flood"):
+                grew = (r != reach[j]).any(dim=2).any(dim=0).nonzero()
+                if len(grew):
+                    spans.append((j, o + int(grew[0]), o + int(grew[-1]) + 1))
             new[j] = r
         reach = new
         dirty = [j for j in range(n) if any(
@@ -210,29 +212,30 @@ def _run_column(words: list, group) -> list:
 
     for name, kwargs in group:
         kw = dict(kwargs)
-        if name == "unpaper_blackfilter":
-            thr = kw.pop("black_threshold", C.UNPAPER_BLACK_THRESHOLD)
-            if thr == C.UNPAPER_BLACK_THRESHOLD:
-                dark = live(dark0)
-            else:  # the gray-threaded path's plane: a wiped pixel is 255
-                dark = [dark_mask(words_to_gray(w) if a is None else
-                                  torch.where(a, 255.0, words_to_gray(w)),
-                                  thr) for w, a in zip(words, acc)]
-            wipe = _blackfilter(col, dark, **kw)
-        elif name == "unpaper_noisefilter":
-            wipe = _noisefilter(col, live(nonwhite0), **kw)
-        elif name == "unpaper_blurfilter":
-            wipe = _blurfilter(col, live(nonwhite0), **kw)
-        elif name == "unpaper_masks":
-            wipe = col.profile_op(live(dark0), masks_wipe_profiles, kw)
-        elif name == "unpaper_grayfilter":
-            s3 = [words_to_s3(w) if a is None else
-                  torch.where(a, 765, words_to_s3(w))
-                  for w, a in zip(words, acc)]
-            wipe = _grayfilter(col, live(dark0), s3, **kw)
-        else:  # unpaper_border
-            wipe = col.profile_op(live(dark0), border_wipe_profiles, kw)
-        acc = [x if a is None else a | x for a, x in zip(acc, wipe)]
+        with span(f"filter.{name}"):
+            if name == "unpaper_blackfilter":
+                thr = kw.pop("black_threshold", C.UNPAPER_BLACK_THRESHOLD)
+                if thr == C.UNPAPER_BLACK_THRESHOLD:
+                    dark = live(dark0)
+                else:  # the gray-threaded path's plane: a wiped pixel is 255
+                    dark = [dark_mask(words_to_gray(w) if a is None else
+                                      torch.where(a, 255.0, words_to_gray(w)),
+                                      thr) for w, a in zip(words, acc)]
+                wipe = _blackfilter(col, dark, **kw)
+            elif name == "unpaper_noisefilter":
+                wipe = _noisefilter(col, live(nonwhite0), **kw)
+            elif name == "unpaper_blurfilter":
+                wipe = _blurfilter(col, live(nonwhite0), **kw)
+            elif name == "unpaper_masks":
+                wipe = col.profile_op(live(dark0), masks_wipe_profiles, kw)
+            elif name == "unpaper_grayfilter":
+                s3 = [words_to_s3(w) if a is None else
+                      torch.where(a, 765, words_to_s3(w))
+                      for w, a in zip(words, acc)]
+                wipe = _grayfilter(col, live(dark0), s3, **kw)
+            else:  # unpaper_border
+                wipe = col.profile_op(live(dark0), border_wipe_profiles, kw)
+            acc = [x if a is None else a | x for a, x in zip(acc, wipe)]
     return [wipe_white_words(w, a) for w, a in zip(words, acc)]
 
 

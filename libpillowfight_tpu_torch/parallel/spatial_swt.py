@@ -52,6 +52,9 @@ the counts and the width sums are exact (whole numbers; widths >= 1 on a
 grid of 2^-23 below 2^29), the squares round in float64 before the sum
 is rounded to float32, the same order-independence the unsharded path
 relies on for its atomics on a card (`ops/swt.py`).
+
+While a profiler runs, each host read of the letter pass is the span
+`sync.spatial_swt_<site>` (`utils.metrics.span`).
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ from ..ops.swt import (_MED_SAMPLES, _VECS, _boxes_on_mask,
                        _letter_links, _letter_select, _median_from_hist,
                        _run_starts, _t_units, _within_run_cap, caps,
                        check_args, compose, swt_maps)
+from ..utils.metrics import span
 from .mesh import ShardedPages, device_scope
 from .spatial import Column, across, map_columns
 from .spatial_edges import canny_rows
@@ -138,14 +142,17 @@ def _page_labels(col: Column, valid, links, n: int, w: int) -> list:
         for k, (dy, dx) in enumerate(OFFSETS):
             if dy == 1:  # (y, x) of the last row to (y + 1, x + dx)
                 link = links[j][:, -1, :, k]
-                ka.append(last[link].to(dev0))
-                kb.append(torch.roll(first, -dx, dims=-1)[link].to(dev0))
+                with span("sync.spatial_swt_links"):  # masked indexing
+                    ka.append(last[link].to(dev0))
+                    kb.append(torch.roll(first, -dx, dims=-1)[link]
+                              .to(dev0))
     ka = torch.cat(ka) if ka else torch.zeros(0, dtype=torch.int64)
     if ka.numel() == 0:
         merged_labels.append(0)
         return lab
-    keys, least = _merge_labels(ka, torch.cat(kb))
-    merged_labels.append(int((keys != least).sum()))
+    with span("sync.spatial_swt_merge"):
+        keys, least = _merge_labels(ka, torch.cat(kb))
+        merged_labels.append(int((keys != least).sum()))
     out = []
     for v, lb in zip(valid, lab):
         dev = lb.device
@@ -161,8 +168,9 @@ def _page_labels(col: Column, valid, links, n: int, w: int) -> list:
 
 def _merge_tables(parts: list, dev) -> tuple:
     """One page's component table from its shards' (labels, table)."""
-    comp, inv = torch.unique(torch.cat([c.to(dev) for c, _ in parts]),
-                             return_inverse=True)
+    with span("sync.spatial_swt_tables"):
+        comp, inv = torch.unique(torch.cat([c.to(dev) for c, _ in parts]),
+                                 return_inverse=True)
     nc = comp.numel()
     table = {}
     for key in _SUMS:
@@ -195,7 +203,9 @@ def _letters(col: Column, gray, minus, plus, max_letters: int,
     lab = _page_labels(col, valid, links, n, w)
     del links
     starts = [_run_starts(v, lb, n) for v, lb in zip(valid, lab)]
-    counts = torch.stack([s.sum(dim=(1, 2)).cpu() for s in starts])  # [J,b]
+    with span("sync.spatial_swt_runs"):
+        counts = torch.stack([s.sum(dim=(1, 2)).cpu()
+                              for s in starts])  # [J,b], on the host
     before = counts.cumsum(0) - counts
     n_runs = counts.sum(0)
     dev0 = gray[0].device

@@ -57,22 +57,11 @@ def scan_mask(b: int, h: int, w: int, seed: int = 0):
 def packed_rounds(seeds_w, mask_w, h: int, w: int, leap: int = 1,
                   max_iters=None):
     """(reach words, rounds run) of the packed flood: on the card the
-    kernel's count (`rounds_of_last_flood`, the final round that changes
-    nothing included); on the CPU the plain version's rounds, which it
-    runs as the kernel does."""
-    if seeds_w.is_cuda:
-        out = fp.flood_packed_cuda(seeds_w, mask_w, h, w, leap, max_iters)
-        return out, fp.rounds_of_last_flood()
-    rounds = 0
-
-    def step(r):
-        nonlocal rounds
-        rounds += 1
-        return fp.flood_round_plain(mask_w, r, leap)
-
-    out = fp._flood(step, seeds_w & mask_w,
-                    h * w + 2 if max_iters is None else max_iters)
-    return out, rounds
+    kernel's count, on the CPU the plain version's rounds, which it runs
+    as the kernel does (`rounds_of_last_flood`, the final round that
+    changes nothing included)."""
+    out = fp.flood_packed(seeds_w, mask_w, h, w, leap, max_iters)
+    return out, fp.rounds_of_last_flood()
 
 
 def sweep_launches(seeds, mask, leap: int = 1, max_iters=None):

@@ -9,6 +9,8 @@
 * `roofline`             — achieved-vs-peak bandwidth for a kernel given
   its bytes-touched model.
 * `trace`                — a torch.profiler context writing a Chrome trace.
+* `span`, `count`        — the program's spans and counts, kept while a
+  profiler runs (`tracing`) and read back with `recorded`.
 * `card_name_and_power`  — the card's name and power limit (nvidia-smi).
 * `HBM_BYTES_PER_S`, `F32_OPS_PER_S`, `SLOTS_PER_S`, `SFU_OPS_PER_S`,
   `ACE_SLOTS_PER_PIXEL_SAMPLE` — the card's published peaks and the ACE
@@ -18,9 +20,12 @@
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import statistics
 import subprocess
+import tempfile
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -185,16 +190,209 @@ class Meter:
 
 
 @contextlib.contextmanager
-def trace(logdir: str):
+def trace(logdir: str | None = None):
     """torch.profiler over the block (CPU, and CUDA where there is a
-    card); writes a Chrome trace, `trace.json`, into `logdir` (open it in
-    Perfetto or chrome://tracing). Yields the profiler."""
+    card); writes a Chrome trace, `trace.json`, into `logdir` (None: the
+    reference's default, `pf_trace` in the temporary directory, which is
+    `/tmp/pf_trace` unless TMPDIR names another; open it in Perfetto or
+    chrome://tracing), where the program's spans are the `pft.*`
+    ranges. Clears the span store first, so `recorded()` after the block
+    holds the block's spans and counts. Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    if logdir is None:
+        logdir = os.path.join(tempfile.gettempdir(), "pf_trace")
     os.makedirs(logdir, exist_ok=True)
+    clear()
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+# ------------------------------------------------------------------ spans
+#
+# The program opens a span at each layer boundary and around the work the
+# measurements point at, and counts what a ratio needs where the work
+# happens. Both record only while a torch.profiler session runs
+# (`tracing`): with none, a span is a shared no-op context and a count
+# returns at once, so the untraced paths read and allocate nothing more.
+
+MAX_RECORDS = 200_000  # spans, and counts, kept until `clear`
+
+
+def tracing() -> bool:
+    """True while a torch.profiler session runs: the one switch of the
+    program's spans and counts."""
+    return torch.autograd._profiler_enabled()
+
+
+@dataclass
+class SpanRecord:
+    """One span: host `time.perf_counter()` seconds at its enter (t0)
+    and exit (t1); its id, its parent's (the innermost span open on the
+    same thread when it opened) and its request (the id the spans of one
+    runner chunk or one pipeline call share). device_s: the seconds its
+    CUDA stream took from the span's enter to its exit (its device work,
+    and any idle the host left inside it), where the span was given a
+    CUDA tensor; None otherwise."""
+    name: str
+    id: int
+    parent: int | None
+    request: int | None
+    thread: int
+    t0: float
+    t1: float = 0.0
+    device_s: float | None = None
+    events: tuple | None = field(default=None, repr=False)
+
+
+@dataclass
+class CountRecord:
+    """One count: its value (an int; a one-element device tensor until
+    `recorded` sums it), the host time it was made at, and the span it
+    was made in."""
+    name: str
+    value: object
+    t: float
+    parent: int | None
+    request: int | None
+
+
+@dataclass
+class Records:
+    """What `recorded` returns."""
+    spans: list        # SpanRecord, by host start
+    counts: list       # CountRecord, in the order made
+    dropped: int       # spans and counts past MAX_RECORDS, not kept
+
+
+class _Store:
+    """The spans and counts kept since the last `clear`, and each
+    thread's stack of open spans."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.local = threading.local()
+        self.ids = itertools.count(1)
+        self.requests = itertools.count()
+        self.spans: list = []
+        self.counts: list = []
+        self.dropped = 0
+
+    def stack(self) -> list:
+        stack = getattr(self.local, "stack", None)
+        if stack is None:
+            stack = self.local.stack = []
+        return stack
+
+    def keep(self, kept: list, record) -> None:
+        with self.lock:
+            if len(kept) < MAX_RECORDS:
+                kept.append(record)
+            else:
+                self.dropped += 1
+
+
+_STORE = _Store()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    def __init__(self, name: str, request, device):
+        self.name, self.request, self.device = name, request, device
+
+    def __enter__(self):
+        stack = _STORE.stack()
+        parent = stack[-1] if stack else None
+        request = self.request
+        if request is None and parent is not None:
+            request = parent.request
+        self.rf = torch.profiler.record_function(f"pft.{self.name}")
+        self.rf.__enter__()
+        self.rec = SpanRecord(self.name, next(_STORE.ids),
+                              None if parent is None else parent.id, request,
+                              threading.get_ident(), 0.0)
+        self.stream = None
+        d = self.device
+        if d is not None and d.is_cuda:
+            self.stream = torch.cuda.current_stream(d.device)
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record(self.stream)
+        stack.append(self.rec)
+        self.rec.t0 = time.perf_counter()
+        return self.rec
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        rec.t1 = time.perf_counter()
+        if self.stream is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(self.stream)
+            rec.events = (self.start, end)
+        _STORE.stack().pop()
+        self.rf.__exit__(*exc)
+        _STORE.keep(_STORE.spans, rec)
+        return False
+
+
+def span(name: str, request: int | None = None, device=None):
+    """A context that, while a profiler runs, opens the profiler range
+    `pft.<name>` and keeps a `SpanRecord` of the block. request: the
+    span's request id (None: its parent's). device: a tensor whose
+    current CUDA stream is timed across the block by a pair of CUDA
+    events, read back only by `recorded`. With no profiler, a no-op."""
+    if not tracing():
+        return _OFF
+    return _Span(name, request, device)
+
+
+def count(name: str, value) -> None:
+    """Keep a count (an int, or a one-element tensor that `recorded`
+    sums: nothing is read back here) with the host time and the span it
+    is made in, while a profiler runs."""
+    if not tracing():
+        return
+    stack = _STORE.stack()
+    parent = stack[-1] if stack else None
+    _STORE.keep(_STORE.counts, CountRecord(
+        name, value, time.perf_counter(),
+        None if parent is None else parent.id,
+        None if parent is None else parent.request))
+
+
+def new_request() -> int | None:
+    """A fresh request id for a call made outside any span, while a
+    profiler runs; None inside a span (its spans take the enclosing
+    request) or with no profiler."""
+    if not tracing() or _STORE.stack():
+        return None
+    return next(_STORE.requests)
+
+
+def recorded() -> Records:
+    """The spans and counts kept since the last `clear`. Resolves what
+    was left on the card: each device span's stream time (waiting for
+    its end event) and each tensor count's sum."""
+    with _STORE.lock:
+        spans, counts = list(_STORE.spans), list(_STORE.counts)
+        dropped = _STORE.dropped
+    for s in spans:
+        if s.events is not None:
+            start, end = s.events
+            end.synchronize()
+            s.device_s = start.elapsed_time(end) / 1e3
+            s.events = None
+    for c in counts:
+        if isinstance(c.value, torch.Tensor):
+            c.value = int(c.value.sum())
+    return Records(sorted(spans, key=lambda s: (s.t0, s.id)), counts,
+                   dropped)
+
+
+def clear() -> None:
+    """Empty the span and count store."""
+    with _STORE.lock:
+        _STORE.spans, _STORE.counts, _STORE.dropped = [], [], 0
