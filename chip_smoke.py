@@ -7,11 +7,16 @@
 1. requires a CUDA card (exits non-zero without one);
 2. prints the card's name and power limit (nvidia-smi);
 3. builds the kernels of libpillowfight_tpu_torch/csrc with nvcc;
-4. holds each of the ten kernels against its plain PyTorch version on the
-   same CUDA tensors, at the shapes the port's paths give it (A4 300 dpi
-   x 2; the sweep flood at A4 600 dpi x 2), and times both with CUDA
+4. holds each of the ten ported kernels and SWT's width-map kernels
+   against its plain PyTorch version on the same CUDA tensors, at the
+   shapes the port's paths give it (A4 300 dpi x 2; the sweep flood at A4
+   600 dpi x 2; the width maps on glyph pages), and times both with CUDA
    events: bit-identical for all but the ACE spray, which is held to f32
-   rounding (rsqrtf). Beside each time it prints the kernel's bound (the
+   rounding (rsqrtf). The width maps are also held to the plain passes at
+   max_len 1, 7 and 1023, on a page with no edges, on pages narrower than
+   the reach, at B = 5 and on a rows-sharded swt's halo slab, and their
+   device time is printed beside the traffic of a design that reads the
+   class plane once a class pair (~1.4 ms an A4 page). Beside each time it prints the kernel's bound (the
    least time the card could take: compulsory bytes over the memory rate,
    or operations over the f32 rate) and, where one PyTorch call computes
    the same function, that call's time, and each call three ways: the
@@ -196,6 +201,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "ace_spray": (_CSRC + "ace_spray.cu", _PALLAS + "ace_kernel.py:33"),
     "label_links": (_CSRC + "label_links.cu", _PALLAS + "flood_kernel.py:382"),
     "flood_sweep": (_CSRC + "flood_sweep.cu", _PALLAS + "flood_kernel.py:156"),
+    # no Pallas kernel: the JAX package's width maps are XLA plane passes
+    "swt_maps": (_CSRC + "swt_maps.cu",
+                 "none (libpillowfight_tpu/ops/swt.py _width_pass, "
+                 "_median_pass)"),
 }
 
 
@@ -620,6 +629,7 @@ DEVICE_FUNCTIONS = {  # name in KERNELS -> the __global__ functions it launches
     "ace_spray": ("ace_spray_kernel",),
     "label_links": ("tile_kernel", "border_kernel", "flatten_kernel"),
     "flood_sweep": ("sweep_kernel",),
+    "swt_maps": ("pair_kernel", "median_kernel", "fill_kernel"),
 }
 
 
@@ -700,6 +710,77 @@ def check_flood4_and_compare(words2, gray) -> None:
         raise AssertionError("compare: the noisefilter changed no pixel")
 
 
+def swt_inputs(gray) -> tuple:
+    """(edges, gx, gy): what swt's width maps start from, of gray planes."""
+    from libpillowfight_tpu_torch.ops.canny import (
+        canny_edge_mask_from_gradients, canny_gradients)
+    gx, gy = canny_gradients(gray)
+    return canny_edge_mask_from_gradients(gx, gy), gx, gy
+
+
+# The traffic of a design that reads the class plane once and updates two
+# f32 maps and two int32 anchor planes for each class pair: 8 x (1 + 16 +
+# 16) B a pixel a pass, two passes (~1.4 ms an A4 300 dpi page at 3.35
+# TB/s). A yardstick for the kernel's device time, not a bound held.
+SWT_MAPS_DESIGN_BYTES_PER_PIXEL = 2 * 8 * (1 + 16 + 16)
+
+
+def check_swt_maps_cases(gray2, r: dict) -> None:
+    """The width-map kernels (`_swt_maps_one` on the card) bit-identical,
+    both maps and n_anchors, to `_swt_maps_one` on the plain passes on the
+    card: glyph pages A4 x 2 at max_len 1, 7 and 1023, a page with no
+    edges, pages narrower than the reach, B = 5 (the plain path's chunk
+    is four A4 pages), and a rows-sharded swt's halo slab; then the
+    kernel's device time at A4 x 2 (`r`, from `check_kernels`) against
+    the design traffic above."""
+    from libpillowfight_tpu_torch.core import constants as C
+    from libpillowfight_tpu_torch.core.bitmap import words_to_gray
+    from libpillowfight_tpu_torch.parallel.spatial_swt import swt_halo
+    from libpillowfight_tpu_torch.utils.pages import text_pages
+    S = importlib.import_module("libpillowfight_tpu_torch.ops.swt")
+    dev = gray2.device
+
+    def glyphs(b, h, w):
+        return swt_inputs(words_to_gray(words_on(text_pages(b, h, w), dev)))
+
+    halo = swt_halo(C.SWT_MAX_RAY_LEN)
+    slab = A4_H // 2 + 2 * halo
+    blank = torch.zeros((2, A4_H, A4_W), dtype=torch.float32, device=dev)
+    cases = [(f"glyphs A4 x 2, max_len {n}", swt_inputs(gray2), n)
+             for n in (C.SWT_MAX_RAY_LEN, 1, 7, 1023)]
+    cases += [("no edges A4 x 2", (blank > 0, blank, blank),
+               C.SWT_MAX_RAY_LEN),
+              ("narrower than the reach, 600 x 90 x 2",
+               glyphs(2, 600, 90), C.SWT_MAX_RAY_LEN),
+              ("narrower than the reach, 90 x 2480 at max_len 1023",
+               glyphs(1, 90, A4_W), 1023),
+              ("B = 5, 700 x 600", glyphs(5, 700, 600), C.SWT_MAX_RAY_LEN),
+              (f"a halo slab, {slab} x {A4_W} (halo {halo})",
+               glyphs(1, slab, A4_W), C.SWT_MAX_RAY_LEN)]
+    for what, (edges, gx, gy), max_len in cases:
+        got = S._swt_maps_one(None, edges, gx, gy, max_len)
+        with plain_versions():
+            want = S._swt_maps_one(None, edges, gx, gy, max_len)
+        torch.cuda.synchronize()
+        differ = [int((a != b).sum()) for a, b in zip(got, want)]
+        if any(differ):
+            raise AssertionError(f"swt_maps, {what}: kernel differs from "
+                                 f"the plain passes (minus, plus, n_anchors "
+                                 f"differing: {differ})")
+        log(f"kernel swt_maps bit-identical to plain, {what}: "
+            f"{int((want[0] < S._INF).sum()) + int((want[1] < S._INF).sum())}"
+            f" finite widths, anchors {want[2].tolist()}")
+        del got, want
+    pages, pixels = gray2.shape[0], gray2[0].numel()
+    design_ms = (SWT_MAPS_DESIGN_BYTES_PER_PIXEL * pixels * pages
+                 / HBM_BYTES_PER_S * 1e3)
+    log(f"kernel swt_maps A4 x {pages}: device {r['kernel_ms']:.4f} ms "
+        f"({r['kernel_ms'] / pages:.4f} a page), event {r['ms']:.4f}, plain "
+        f"{r['plain_ms']:.4f}; design traffic {design_ms / pages:.4f} ms a "
+        f"page ({SWT_MAPS_DESIGN_BYTES_PER_PIXEL} B a pixel), compulsory "
+        f"bytes {r['bound_ms'] / pages:.4f} ms a page")
+
+
 def check_kernels(words2, swt2: dict, words600) -> dict:
     """Each kernel vs its plain version: on one A4 x 2 batch's planes,
     on the planes SWT builds on an A4 x 2 batch with glyphs (`swt2`), and
@@ -716,9 +797,11 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
     from libpillowfight_tpu_torch.ops.cuda import label as lb
     from libpillowfight_tpu_torch.ops.cuda import linecount as lc
     from libpillowfight_tpu_torch.ops.cuda import noise
+    from libpillowfight_tpu_torch.ops.cuda import swt_maps as sm
     from libpillowfight_tpu_torch.ops.unpaper.common import (dark_mask,
                                                              nonwhite_mask)
     tace = importlib.import_module("libpillowfight_tpu_torch.ops.ace")
+    S = importlib.import_module("libpillowfight_tpu_torch.ops.swt")
 
     b, h, w = words2.shape
     gray = words_to_gray(words2)  # canny's gray plane of the same pages
@@ -734,6 +817,9 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
     planar, sval = tace.spray_inputs(words_to_pages(words2), sy, sx)
     slope, limit = C.ACE_DEFAULT_SLOPE, C.ACE_DEFAULT_LIMIT
     valid, links = swt2["valid"], swt2["links"]
+    edges_s, gx_s, gy_s = swt_inputs(swt2["gray"])  # the width maps' input
+    angles_s = S._gradient_angles(gx_s, gy_s)
+    swt_table = S._direction_table(C.SWT_MAX_RAY_LEN)
     gray600 = words_to_gray(words600)
     seeds600, dark600 = blackfilter_flood_inputs(gray600)
     nonwhite600 = nonwhite_mask(gray600)
@@ -800,6 +886,10 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
             lambda: fs.flood_sweep_cuda(seeds600, dark600, leap=20),
             lambda: fs.flood_sweep_plain(seeds600, dark600, leap=20),
             exact, [seeds600, dark600], 0, None),
+        "swt_maps": (lambda: sm.swt_maps_cuda(angles_s, edges_s, *swt_table),
+                     lambda: S._width_maps_plain(S._edge_classes(
+                         edges_s, gx_s, gy_s), C.SWT_MAX_RAY_LEN),
+                     exact, [angles_s, edges_s], 0, None),
     }
     # the unpack's 17.4 MB of output at A4 x 2 fits in the 50 MB L2, so it
     # may end before its writes reach device memory: it is also timed at
@@ -857,6 +947,8 @@ def check_kernels(words2, swt2: dict, words600) -> dict:
             f"device ms by name {split['by_name']}")
         del got, want, outputs
 
+    check_swt_maps_cases(swt2["gray"], out["swt_maps"])
+    del edges_s, gx_s, gy_s, angles_s
     check_blur_cases(gray, blur_planes_rgb(words2), gray600)
     del gray600
     check_line_count_cases(dark, dark600)
@@ -982,22 +1074,24 @@ def _counters():
     from libpillowfight_tpu_torch.ops.cuda import label as lb
     from libpillowfight_tpu_torch.ops.cuda import linecount as lc
     from libpillowfight_tpu_torch.ops.cuda import noise
-    return spray, fp, gs, lc, noise, lb, fs
+    from libpillowfight_tpu_torch.ops.cuda import swt_maps as sm
+    return spray, fp, gs, lc, noise, lb, fs, sm
 
 
 def launch_counts() -> dict:
-    spray, fp, gs, lc, noise, lb, fs = _counters()
+    spray, fp, gs, lc, noise, lb, fs, sm = _counters()
     return {"line_counts": lc.launches, **fp.launches, **noise.launches,
             "gaussian_sep": gs.launches,
             **{f"gaussian_sep[{k}]": v for k, v in gs.instance_launches.items()},
             "ace_spray": spray.launches,
-            "label_links": lb.launches, "flood_sweep": fs.launches}
+            "label_links": lb.launches, "flood_sweep": fs.launches,
+            "swt_maps": sm.launches}
 
 
 def reset_launch_counts() -> None:
-    spray, fp, gs, lc, noise, lb, fs = _counters()
+    spray, fp, gs, lc, noise, lb, fs, sm = _counters()
     lc.launches = gs.launches = spray.launches = 0
-    lb.launches = fs.launches = 0
+    lb.launches = fs.launches = sm.launches = 0
     for d in (fp.launches, noise.launches, gs.instance_launches):
         for k in d:
             d[k] = 0
@@ -1357,7 +1451,7 @@ FACADE_KERNELS = {
     "sobel": [],
     "canny": ["gaussian_sep", "pack_rows", "flood_round", "unpack_rows"],
     "swt": ["gaussian_sep", "pack_rows", "flood_round", "unpack_rows",
-            "label_links"],
+            "label_links", "swt_maps"],
     "ace": [],
     "compare": [],
 }
@@ -1684,7 +1778,8 @@ def config5(total: dict, dev, card: str) -> tuple:
         runner = BatchRunner(spec, chunk_size=RUNNER_CHUNK)
         m, counts = counted(lambda: runner.run(CONFIG5_PAGES, source, check),
                             "config 5", CHAIN_KERNELS + ["gaussian_sep",
-                                                         "label_links"])
+                                                         "label_links",
+                                                         "swt_maps"])
         failed = src.failed
     for k in total:
         total[k] += counts[k]
@@ -1762,7 +1857,8 @@ def check_mesh_runner(total: dict, dev, card: str, cleanup: tuple,
          [one, (f"(2, 2) of {dev}", make_mesh(4, rows=2, devices=[dev] * 4)),
           rows2, *several]),
         ("config 5's spec", DOCUMENT_CLEANUP + (("swt", {}),), text,
-         MESH_CONFIG5_PAGES, CHAIN_KERNELS + ["gaussian_sep", "label_links"],
+         MESH_CONFIG5_PAGES,
+         CHAIN_KERNELS + ["gaussian_sep", "label_links", "swt_maps"],
          [one, rows2, *several]),
     ]
     for what, spec, (paths, want), n, expect, meshes in runs:
@@ -1945,7 +2041,8 @@ SHARDED_FILTERS = {
     "ace (shared, 100 samples)": ([("ace", {"seed": ACE_SEED})],
                                   ["ace_spray"]),
     **{f"swt (type {t})": ([("swt", {"output_type": t})],
-                           ["gaussian_sep", *FLOOD_PACKED, "label_links"])
+                           ["gaussian_sep", *FLOOD_PACKED, "label_links",
+                            "swt_maps"])
        for t in (0, 1, 2)},
     "DOCUMENT_CLEANUP, then canny": ([*DOCUMENT_CLEANUP, ("canny", ())],
                                      [*SHARDED_PACKED, "gaussian_sep"]),
@@ -2012,7 +2109,8 @@ def check_sharded_filters(run, one_card, dev, card: str,
     held("EDGE_STACK", a4_600, [("canny", {})], one_card(1, 2),
          ["gaussian_sep", "flood_sweep"], "flood_sweep")
     held("swt (type 0)", a4_600, [("swt", {})], one_card(1, 2),
-         ["gaussian_sep", "flood_sweep", "label_links"], "flood_sweep")
+         ["gaussian_sep", "flood_sweep", "label_links", "swt_maps"],
+         "flood_sweep")
     del a4_600
     a4 = words_on(text_pages(1, A4_H, A4_W), dev)
     for mode in ("rolled", "per_pixel"):
@@ -2022,7 +2120,8 @@ def check_sharded_filters(run, one_card, dev, card: str,
     del a4
     snake = words_on(lit_snake_pages(1, A4_H, A4_W), dev)
     held("swt (type 0) on the lit snake", snake, [("swt", {})],
-         one_card(1, 4), ["gaussian_sep", *FLOOD_PACKED, "label_links"])
+         one_card(1, 4),
+         ["gaussian_sep", *FLOOD_PACKED, "label_links", "swt_maps"])
     if not spatial_swt.merged_labels[0]:
         raise AssertionError("the lit snake's component merged no label "
                              "across the boundaries")
@@ -2057,7 +2156,7 @@ def check_sharded_filters(run, one_card, dev, card: str,
 
 
 def check_device_guard(n_cards: int) -> None:
-    """Each of the ten kernels on tensors of cuda:1 while cuda:0 is the
+    """Each kernel entry on tensors of cuda:1 while cuda:0 is the
     current device, held to its plain version: every C entry is called
     through `_build.launch`, which makes the tensor's device current."""
     if n_cards < 2:
@@ -2065,7 +2164,8 @@ def check_device_guard(n_cards: int) -> None:
             "while cuda:0 was current: the cross-device check was not "
             "exercised")
         return
-    spray, fp, gs, lc, noise, lb, fs = _counters()
+    spray, fp, gs, lc, noise, lb, fs, sm = _counters()
+    from libpillowfight_tpu_torch.ops import swt as S
     tace = importlib.import_module("libpillowfight_tpu_torch.ops.ace")
     one = torch.device("cuda", 1)
     g = torch.Generator().manual_seed(11)
@@ -2079,6 +2179,8 @@ def check_device_guard(n_cards: int) -> None:
     taps = (0.25, 0.5, 0.25)
     words = fp.pack_rows_plain(plane)
     seeds_w = fp.pack_rows_plain(seeds)
+    angles = ((torch.rand(plane.shape, generator=g) * 2 - 1)
+              * torch.pi).to(one)
     cases = {
         "line_counts": (lambda: lc.line_counts_cuda(plane),
                         lambda: lc.line_counts_plain(plane)),
@@ -2104,6 +2206,11 @@ def check_device_guard(n_cards: int) -> None:
                                                    10.0, 1000.0),
                       lambda: spray.ace_spray_plain(planar, sy, sx, sval,
                                                     10.0, 1000.0)),
+        "swt_maps": (lambda: sm.swt_maps_cuda(angles, plane,
+                                              *S._direction_table(24)),
+                     lambda: S._width_maps_plain(torch.where(
+                         plane, S._quantize_angles(angles), -1).to(
+                             torch.int8), 24)),
     }
     with torch.cuda.device(0):
         for name, (kernel, plain) in cases.items():
@@ -2125,9 +2232,9 @@ def check_device_guard(n_cards: int) -> None:
             if not ok:
                 raise AssertionError(f"{name} on cuda:1 with cuda:0 current "
                                      f"differs from its plain version")
-    log("device guard: each of the ten kernels launched on cuda:1 tensors "
-        "while cuda:0 was current, each held to its plain version "
-        "(bit-identical; the ACE spray within ACE_SPRAY_RTOL)")
+    log(f"device guard: each of the {len(cases)} kernel entries launched on "
+        f"cuda:1 tensors while cuda:0 was current, each held to its plain "
+        f"version (bit-identical; the ACE spray within ACE_SPRAY_RTOL)")
 
 
 def check_tools(total: dict, plain_page: torch.Tensor) -> None:
@@ -2584,7 +2691,8 @@ def main() -> int:
     _build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s ({_build.library_path().name})")
     for src in ("gaussian_sep.cu", "linecount.cu", "label_links.cu",
-                "ace_spray.cu", "flood_packed.cu", "noise_cert.cu"):
+                "ace_spray.cu", "flood_packed.cu", "noise_cert.cu",
+                "swt_maps.cu"):
         for line in _build.resource_usage(src):
             log(f"ptxas {src}: {line}")
 
@@ -2633,7 +2741,8 @@ def main() -> int:
     check_chain(out, words2_cpu, cleanup_k1, "cleanup chain k=1")
     out = drive(swt_spec, "swt",
                 ["gaussian_sep", "gaussian_sep[hw10]", "pack_rows",
-                 "flood_round", "unpack_rows", "label_links"], text2)
+                 "flood_round", "unpack_rows", "label_links", "swt_maps"],
+                text2)
     check_swt(out, text2, swt2, swt_spec,
               words_on(text_pages(1, *SWT_SMALL), dev))
     del swt2

@@ -41,6 +41,7 @@ I = ctypes.c_int
 F = ctypes.c_float
 FP = ctypes.POINTER(ctypes.c_float)  # a host array of floats
 IP = ctypes.POINTER(ctypes.c_int)  # a host int the entry writes
+IA = ctypes.POINTER(ctypes.c_int)  # a host array of ints
 # C signature of every entry: name -> argument types (return type int)
 _SIGNATURES = {
     "pft_line_counts": [P, P, I, I, I, P],
@@ -55,6 +56,7 @@ _SIGNATURES = {
     "pft_label_scratch_bytes": [I, I],  # returns bytes, not an error code
     "pft_label_links": [P, P, P, P, P, P, P, I, I, I, P],
     "pft_flood_sweep": [P, P, P, I, I, I, I, I, P],
+    "pft_swt_maps": [P, P, P, P, P, P, P, I, I, I, IA, FP, P],
 }
 
 _lock = threading.Lock()

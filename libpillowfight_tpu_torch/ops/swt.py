@@ -16,6 +16,10 @@ bit-identical to it on the same edges and gradients:
 5. Each ray's median (of its first 13 cells, the upper median) clamps the
    ray's cells in a second pass.
 
+On a CUDA tensor the directions' quantization of step 2 and steps 3 to 5
+are the kernels of `ops/cuda/swt_maps.py` (`csrc/swt_maps.cu`),
+bit-identical to the plain passes below, which a CPU tensor takes.
+
 What differs from the reference, where a gather is cheaper than a chain of
 dense shifts on this hardware and the values are the same:
 
@@ -56,6 +60,7 @@ from ..core.bitmap import (_third, ensure_batched, maybe_unbatch,
                            words_to_pages)
 from ..utils.metrics import span
 from .canny import canny_edge_mask_from_gradients, canny_gradients
+from .cuda import swt_maps as maps_kernel
 from .cuda.label import OFFSETS
 from .morph import label_components_links
 
@@ -78,8 +83,13 @@ _CHAIN_MISS = (16 << 11) | 2047
 _MED_SAMPLES = 13  # ray cells 0..12 sampled for the median clamp
 
 # pixels of one call of the width maps: larger batches go through in
-# chunks of pages (about four A4 300 dpi pages)
+# chunks of pages (about four A4 300 dpi pages; the plain passes hold 16
+# int32 chain planes)
 _MAPS_CHUNK_PIXELS = 36_000_000
+# the same on a CUDA tensor, whose kernels hold ~25 bytes a pixel (the
+# angles, the classes, a chain plane, two maps, two state planes): 16 A4
+# 300 dpi pages (the runner's chunk) in one call
+_KERNEL_MAPS_CHUNK_PIXELS = 150_000_000
 
 
 def _half(v):
@@ -101,7 +111,11 @@ def _halves(v):
 def _quantize_dirs(ux: torch.Tensor, uy: torch.Tensor) -> torch.Tensor:
     """Nearest direction class (int8) of unit directions: the first class
     at the least distance on the circle."""
-    ang = torch.atan2(uy, ux)
+    return _quantize_angles(torch.atan2(uy, ux))
+
+
+def _quantize_angles(ang: torch.Tensor) -> torch.Tensor:
+    """`_quantize_dirs` of the directions' angles."""
     best = torch.full_like(ang, math.inf)
     cls = torch.zeros(ang.shape, dtype=torch.int8, device=ang.device)
     for k, a in enumerate(_ANGLES.astype(np.float32)):
@@ -257,6 +271,24 @@ def _t_units(k: int, max_len: int) -> int:
     return max(int(np.ceil(max_len / _NORMS[k])), 1)
 
 
+def _direction_table(max_len: int) -> tuple[list[int], list[float]]:
+    """The 16 classes as the width-map kernels take them: for each, (dy,
+    dx, 2 for a knight move else 0, its far and its near intermediate
+    cell, t_units) and, in f32, (|v|, |far|, |near|, its angle); then pi
+    and 2 pi in f32, as `_quantize_angles` compares in them. The near cell
+    is the one a knight ray also covers (`_half`)."""
+    ints, floats = [], []
+    for k, v in enumerate(_VECS):
+        halves = _halves(v) or ((0, 0), (0, 0))
+        ints += [*v, len(_halves(v)), *halves[0], *halves[-1],
+                 _t_units(k, max_len)]
+        floats += [float(np.float32(x)) for x in
+                   (_NORMS[k], np.hypot(*halves[0]), np.hypot(*halves[-1]),
+                    _ANGLES[k])]
+    return ints, floats + [float(np.float32(math.pi)),
+                           float(np.float32(2 * math.pi))]
+
+
 def _pairs(chains, k):
     """(class, down, up, chain the up side was decoded from) for class k
     and its opposite."""
@@ -331,28 +363,46 @@ def _median_pass(edge_cls, chains, swt, med_map, max_len: int) -> dict:
     return res
 
 
+def _gradient_angles(gx, gy) -> torch.Tensor:
+    """The angles of the unit gradients, which `_edge_classes` quantizes."""
+    norm = torch.sqrt(gx * gx + gy * gy).clamp(min=1e-6)
+    return torch.atan2(gy / norm, gx / norm)
+
+
 def _edge_classes(edges, gx, gy) -> torch.Tensor:
     """Gradient class (int8) at edge pixels, -1 elsewhere."""
-    norm = torch.sqrt(gx * gx + gy * gy).clamp(min=1e-6)
-    cls = _quantize_dirs(gx / norm, gy / norm)
+    cls = _quantize_angles(_gradient_angles(gx, gy))
     return torch.where(edges, cls, -1).to(torch.int8)
 
 
-def _swt_maps_one(gray, edges, gx, gy, max_len):
-    """Both polarities' stroke-width maps, for one page [H,W] or a batch
-    [B,H,W]. gx/gy are the smoothed gradients shared with canny; gray is
-    not read (the reference's signature).
-
-    Returns (swt_minus, swt_plus, n_anchors): f32 maps (_INF = no
-    stroke), sign -1 marching against the gradient (dark strokes on a
-    light page), +1 along it; n_anchors int32 per page."""
-    edge_cls = _edge_classes(edges, gx, gy)
+def _width_maps_plain(edge_cls: torch.Tensor, max_len: int):
+    """Steps 3 to 5 in plain torch: (swt_minus, swt_plus, n_anchors) of
+    edge classes [..., H, W]."""
     chains, swt, a_enc = _width_pass(edge_cls, max_len)
     n_anchors = (((a_enc[-1] | a_enc[1]) >> 16) != 0).sum(
         dim=(-2, -1), dtype=torch.int32)
     med_map = {s: _ray_medians(swt[s], a_enc[s]) for s in (-1, 1)}
     res = _median_pass(edge_cls, chains, swt, med_map, max_len)
     return res[-1], res[1], n_anchors
+
+
+def _swt_maps_one(gray, edges, gx, gy, max_len):
+    """Both polarities' stroke-width maps, for one page [H,W] or a batch
+    [B,H,W]. gx/gy are the smoothed gradients shared with canny; gray is
+    not read (the reference's signature). On a CUDA tensor the kernels
+    take the gradients' angles from torch and do the rest.
+
+    Returns (swt_minus, swt_plus, n_anchors): f32 maps (_INF = no
+    stroke), sign -1 marching against the gradient (dark strokes on a
+    light page), +1 along it; n_anchors int32 per page."""
+    if not maps_kernel.use_kernel(edges, gx, gy):
+        return _width_maps_plain(_edge_classes(edges, gx, gy), max_len)
+    one = edges.ndim == 2
+    ang, edges = _gradient_angles(gx, gy), edges.contiguous()
+    out = maps_kernel.swt_maps_cuda(ang[None] if one else ang,
+                                    edges[None] if one else edges,
+                                    *_direction_table(max_len))
+    return tuple(x[0] for x in out) if one else out
 
 
 # --------------------------------------------------------------------------
@@ -618,9 +668,12 @@ def caps(h: int, w: int, max_letters: int | None, max_runs: int | None,
 
 def swt_maps(edges, gx, gy, max_len: int):
     """Both polarities' width maps and the anchors of a batch [B,H,W],
-    `_MAPS_CHUNK_PIXELS` at a time."""
+    `_MAPS_CHUNK_PIXELS` (`_KERNEL_MAPS_CHUNK_PIXELS` on a CUDA tensor) at
+    a time."""
     b, h, w = edges.shape
-    step = max(1, _MAPS_CHUNK_PIXELS // (h * w))
+    chunk = (_KERNEL_MAPS_CHUNK_PIXELS if maps_kernel.use_kernel(edges)
+             else _MAPS_CHUNK_PIXELS)
+    step = max(1, chunk // (h * w))
     with span("swt.width_maps", device=edges):
         parts = [_swt_maps_one(None, edges[i:i + step], gx[i:i + step],
                                gy[i:i + step], max_len)

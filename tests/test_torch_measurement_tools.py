@@ -79,8 +79,9 @@ LABELS = {
         "sweep flood to its fixed point"],
     "profile_swt": [
         "gray", "gradients and edges", "width maps, pass 1", "ray medians",
-        "width maps, pass 2", "labelling", "output", "letter statistics",
-        "sum of stages", "swt total (mode 0)"],
+        "width maps, pass 2", profile_swt.KERNEL_STAGE, "labelling",
+        "output", "letter statistics", "sum of stages",
+        "swt total (mode 0)"],
     "profile_filters": sorted(jpipe._FILTERS),
 }
 
